@@ -6,20 +6,34 @@
 Phases, one line each (any failure raises and exits non-zero):
 
 1. Device: torch and CUDA versions, the card's name and power limit.
-2. Build: compile the hand-written kernels from ``csrc/fp_kernels.cu``.
-3. Kernels: K1-K3 on seeded inputs at main-path shapes plus the edge values
-   0, 1, 2, p-1, p-2, (p-1)/2, held bit for bit against their plain
-   PyTorch versions on the same CUDA tensors; each timed with CUDA events
-   beside its plain version and its least possible time on the card.
+2. Build: compile the hand-written kernels from ``csrc/fp_kernels.cu``
+   (``-Xptxas -v``: registers and spills per kernel).
+3. Kernels: K1-K3 on seeded inputs at ``CHECK_SIZES`` elements (the edge
+   values 0, 1, 2, p-1, p-2, (p-1)/2 in every pairing where n >= 36) and
+   on broadcast operands with leading axes, held bit for bit against
+   their plain PyTorch versions on the same CUDA tensors.
 4. The main path at each width: sets made from ``--seed`` with the port's
    own signing (distinct keys; 64 messages at 512 sets, 8 signers each)
    go through ``TorchBlsVerifier.verify_signature_sets``.  The valid batch
    must pass, a batch with another set's signature at one lane and a batch
    with one set signed by the wrong key must fail, and every kernel must
-   have launched during the valid verify.  Per-phase CUDA-event times come
-   from a second run of the same program split at its phase boundaries.
-5. Profile: one more verify at the first width under torch.profiler, for
-   the card's busy share and the kernels that take the most time.
+   have launched during the valid verify; the launch counters also give
+   each kernel's launches by element count n.  Per-phase CUDA-event times
+   come from a second run of the same program split at its phase
+   boundaries.
+5. Kernel times at every n of the first width's valid verify (a 512-set
+   verify launches K1, K2 and K3 at 9, 46 and 13 distinct n): at each n
+   the kernel is held against its plain version again, then timed two
+   ways.  Device us per launch: 200 raw launches through the C launcher,
+   back to back between two CUDA events, over the count.  Host us per
+   call: the host clock around 200 calls of the Python wrapper, over the
+   count.  Beside them the bound (the least time the card could take, from
+   the least multiplies known for the work; the looser 13-bit yardstick
+   is printed beside it), at the kernel's primary n the plain version's time,
+   and the launch floor: a one-element torch add timed the same way.
+6. Profile: one more verify at the first width under torch.profiler, for
+   the card's busy share, the kernels that take the most time and the
+   time of each hand-written kernel.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -41,18 +55,35 @@ import numpy as np
 # Programming Guide, arithmetic throughput table) x 132 SMs x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 INT32_MADD_PER_S = 64 * 132 * 1.98e9
-# 32-bit multiply-adds of one CIOS Montgomery product with 30 limbs:
-# 30 x (30 for a_i*b + 1 for the digit m + 30 for m*p)
-MADDS_PER_PRODUCT = 30 * 61
+# The least 32-bit multiplies known for the work, one issue slot each, low
+# and high halves counted apart, on 12 words of 32 bits: a full product a*b
+# takes 144 + 144; a reduction to x*2^-390 takes 12 digits m and 144 + 144
+# for m*p (x*2^-384), then one 6-bit step (its digit, and 12 + 12 for the
+# product by p).
+MULS_PER_PRODUCT = 2 * 144
+MULS_PER_REDUCTION = 12 + 2 * 144 + 1 + 2 * 12
+# The first port's yardstick, printed beside the bound so that tables
+# made with it read against the same number: 30 x (30 + 1 + 30)
+# multiply-adds of a CIOS product on 13-bit digits.
+MADDS_13BIT_YARDSTICK = 30 * 61
 LIMB_BYTES = 30 * 4
 
 KERNELS = {
-    # name: (products per element, inputs, outputs, pallas_call line)
-    "mont_mul": (1, 2, 1, "lodestar_tpu/ops/bls12_381/pallas_fp.py:197"),
-    "f2_mul": (3, 4, 2, "lodestar_tpu/ops/bls12_381/pallas_fp.py:274"),
-    "f2_sqr": (2, 2, 2, "lodestar_tpu/ops/bls12_381/pallas_fp.py:299"),
+    # name: (full products, reductions, inputs, outputs, pallas_call line).
+    # K2 at its least: Karatsuba's three products, summed into the two
+    # coefficients before one reduction each; K3: (a0+a1)(a0-a1) and a0 a1.
+    "mont_mul": (1, 1, 2, 1, "lodestar_tpu/ops/bls12_381/pallas_fp.py:197"),
+    "f2_mul": (3, 2, 4, 2, "lodestar_tpu/ops/bls12_381/pallas_fp.py:274"),
+    "f2_sqr": (2, 2, 2, 2, "lodestar_tpu/ops/bls12_381/pallas_fp.py:299"),
 }
 SOURCE = "lodestar_tpu_torch/ops/bls12_381/csrc/fp_kernels.cu"
+
+# raw launches per device timing, and wrapper calls per host timing
+TIMED_LAUNCHES = 200
+# n checked against the plain versions before the main path runs: 1, the
+# final exponentiation's 12 and 18, the Miller loop's 512 + 1 pairs, a ~1k
+# and a ragged n, and 18 x 513 (one Fp12 product per pair)
+CHECK_SIZES = (1, 12, 18, 513, 1024, 1061, 9234)
 
 
 def log(msg: str) -> None:
@@ -68,7 +99,9 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(torch, fn, repeats: int) -> float:
-    """Median milliseconds of ``fn()`` over ``repeats`` runs (CUDA events)."""
+    """Median milliseconds of ``fn()`` over ``repeats`` runs, CUDA events
+    around each run: for the plain versions, whose many small launches are
+    paced by the host."""
     for _ in range(2):
         fn()
     times = []
@@ -83,76 +116,135 @@ def cuda_ms(torch, fn, repeats: int) -> float:
     return statistics.median(times)
 
 
+def device_us(torch, launch, count: int = TIMED_LAUNCHES) -> float:
+    """Microseconds on the card per launch: ``count`` raw launches back to
+    back between two CUDA events, over the count.  A sleep kernel ahead of
+    the first event holds the card while the host queues every launch, so
+    the interval is the card's work and not the host's pace; if the first
+    event has already run when the host is done queuing, the sleep was too
+    short and the measurement is taken again with a longer one."""
+    for _ in range(10):
+        launch()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(count):
+            launch()
+        end.record()
+        queued_ahead = not start.query()
+        end.synchronize()
+        if queued_ahead:
+            return start.elapsed_time(end) * 1e3 / count
+        cycles *= 4
+    raise AssertionError("the host could not queue the launches ahead of the card")
+
+
+def host_us_per_call(torch, call, count: int = TIMED_LAUNCHES) -> float:
+    """Microseconds of host time per wrapper call: host clock around
+    ``count`` calls (operand checks, copies, allocation, the ctypes launch),
+    then a synchronise outside the interval."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(count):
+        call()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed * 1e6 / count
+
+
+def bound_us(name: str, n: int):
+    """The least time the card could take for ``n`` elements of a kernel:
+    bytes over HBM bandwidth against 32-bit multiplies over the integer
+    rate.  Returns (us, "bytes" or "operations")."""
+    products, reductions, n_in, n_out, _ = KERNELS[name]
+    t_bytes = (n_in + n_out) * n * LIMB_BYTES / HBM_BYTES_PER_S
+    muls = products * MULS_PER_PRODUCT + reductions * MULS_PER_REDUCTION
+    t_ops = muls * n / INT32_MADD_PER_S
+    return max(t_bytes, t_ops) * 1e6, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def yardstick_13bit_us(name: str, n: int) -> float:
+    """The first port's bound: bytes against 1,830 multiply-adds a product."""
+    products, _, n_in, n_out, _ = KERNELS[name]
+    t_bytes = (n_in + n_out) * n * LIMB_BYTES / HBM_BYTES_PER_S
+    t_ops = products * MADDS_13BIT_YARDSTICK * n / INT32_MADD_PER_S
+    return max(t_bytes, t_ops) * 1e6
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
-def kernel_inputs(torch, rng, n_rand: int, n_args: int, dev):
-    """``n_args`` (n, 30) int32 tensors: seeded canonical values, then every
-    pairing of the edge values in the first two arguments."""
+def kernel_inputs(torch, rng, n: int, n_args: int, dev):
+    """``n_args`` (n, 30) int32 tensors of canonical values made from
+    ``rng``; when n >= 36 the last 36 rows hold every pairing of the edge
+    values 0, 1, 2, p-1, p-2, (p-1)/2 in the first two arguments."""
     from lodestar_tpu_torch.crypto.bls.fields import P
     from lodestar_tpu_torch.ops.bls12_381 import curve as cv
 
     edges = [0, 1, 2, P - 1, P - 2, (P - 1) // 2]
+    n_edge = 36 if n >= 36 else 0
     cols = []
     for k in range(n_args):
-        vals = [int.from_bytes(rng.bytes(48), "big") % P for _ in range(n_rand)]
-        for i, x in enumerate(edges):
-            for j, y in enumerate(edges):
-                vals.append((x, y, edges[(i + j) % 6], edges[(i + 2 * j) % 6])[k])
+        vals = [int.from_bytes(rng.bytes(48), "big") % P for _ in range(n - n_edge)]
+        if n_edge:
+            for i, x in enumerate(edges):
+                for j, y in enumerate(edges):
+                    vals.append((x, y, edges[(i + j) % 6], edges[(i + 2 * j) % 6])[k])
         cols.append(torch.from_numpy(cv.ints_to_limbs_np(vals).astype(np.int32)).to(dev))
     return cols
 
 
-def check_kernels(torch, rng, repeats: int, dev):
+def kernel_pair(torch, fpk, name: str, xs):
+    """(wrapper call, plain call) of kernel ``name`` on the tensors ``xs``.
+    The plain K1 takes operands of one shape, as the wrapper hands them on."""
+    if name == "mont_mul":
+        return (lambda: fpk.mont_mul(xs[0], xs[1]),
+                lambda: fpk.mont_mul_plain(*torch.broadcast_tensors(xs[0], xs[1])))
+    if name == "f2_mul":
+        return (lambda: fpk.f2_mul((xs[0], xs[1]), (xs[2], xs[3])),
+                lambda: fpk.f2_mul_plain((xs[0], xs[1]), (xs[2], xs[3])))
+    return (lambda: fpk.f2_sqr((xs[0], xs[1])),
+            lambda: fpk.f2_sqr_plain((xs[0], xs[1])))
+
+
+def check_equal(torch, name: str, kernel, plain, what: str) -> int:
+    """Run both on the card; raise unless they agree limb for limb."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    if err != 0 or not all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name} at {what}: kernel differs from its plain version "
+                             f"(max |diff| {err})")
+    return err
+
+
+def check_kernels(torch, rng, dev):
+    """Every kernel against its plain version at CHECK_SIZES and on
+    broadcast operands with leading axes."""
     from lodestar_tpu_torch.ops.bls12_381 import fp_kernels as fpk
 
-    # main-path shapes: K2 as one f12_mul of the Miller loop at B = 512
-    # (18 x 513 Fp2 products); K1 and K3 as the 2B-wide h2c products
-    n_main = {"mont_mul": 1024, "f2_mul": 18 * 513, "f2_sqr": 1024}
-    rows = {}
-    for name, (products, n_in, n_out, replaces) in KERNELS.items():
-        xs = kernel_inputs(torch, rng, n_main[name], n_in, dev)
-        if name == "mont_mul":
-            kernel = lambda: fpk.mont_mul(xs[0], xs[1])
-            plain = lambda: fpk.mont_mul_plain(xs[0], xs[1])
-        elif name == "f2_mul":
-            kernel = lambda: fpk.f2_mul((xs[0], xs[1]), (xs[2], xs[3]))
-            plain = lambda: fpk.f2_mul_plain((xs[0], xs[1]), (xs[2], xs[3]))
-        else:
-            kernel = lambda: fpk.f2_sqr((xs[0], xs[1]))
-            plain = lambda: fpk.f2_sqr_plain((xs[0], xs[1]))
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-        if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"{name}: kernel differs from its plain version (max |diff| {err})")
-        n = xs[0].shape[0]
-        ms = cuda_ms(torch, kernel, repeats)
-        plain_ms = cuda_ms(torch, plain, max(3, repeats // 4))
-        bytes_moved = (n_in + n_out) * n * LIMB_BYTES
-        madds = products * MADDS_PER_PRODUCT * n
-        t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, madds / INT32_MADD_PER_S
-        rows[name] = {
-            "name": name,
-            "route": "cuda",
-            "source": SOURCE,
-            "replaces": replaces,
-            "launches": 0,
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-        }
-        log(f"[kernels] {name}: {n} elements equal to plain, {ms:.4f} ms "
-            f"(plain {plain_ms:.3f} ms, bound {rows[name]['bound_ms']:.5f} ms "
-            f"by {rows[name]['bound_by']})")
-    return rows
+    for name, (_, _, n_in, _, _) in KERNELS.items():
+        for n in CHECK_SIZES:
+            xs = kernel_inputs(torch, rng, n, n_in, dev)
+            check_equal(torch, name, *kernel_pair(torch, fpk, name, xs), f"n={n}")
+        # broadcast: (3, 1, 30) against (1, 5, 30) and (5, 30) operands
+        big = kernel_inputs(torch, rng, 15, n_in, dev)
+        xs = [x[:3].reshape(3, 1, 30) if k % 2 == 0 else x[3:8].reshape(1, 5, 30)
+              for k, x in enumerate(big)]
+        if n_in == 4:
+            xs[3] = xs[3].reshape(5, 30)
+        check_equal(torch, name, *kernel_pair(torch, fpk, name, xs), "broadcast (3, 5)")
+        log(f"[kernels] {name}: equal to plain at n = "
+            f"{', '.join(map(str, CHECK_SIZES))} and broadcast (3, 5)")
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +317,7 @@ def run_width(torch, all_sets, wrong_key, width: int, repeats: int, dev):
     ok = asyncio.run(verify(sets))
     first_s = time.perf_counter() - t0
     launches = dict(fpk.LAUNCHES)
+    launch_sizes = {k: dict(sorted(v.items())) for k, v in fpk.LAUNCH_SIZES.items()}
     if ok is not True:
         raise AssertionError(f"valid {width}-set batch rejected")
     missing = [k for k, v in launches.items() if v <= 0]
@@ -260,8 +353,104 @@ def run_width(torch, all_sets, wrong_key, width: int, repeats: int, dev):
     log(f"[main {width}] phases (CUDA events, ms): "
         + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()))
     log(f"[main {width}] launches in one verify: {json.dumps(launches)}")
+    for name, hist in launch_sizes.items():
+        log(f"[main {width}] {name} launches by elements n: {json.dumps(hist)}")
     return {"width": width, "median_s": med, "runs_s": times, "phases_ms": phases,
-            "launches": launches}
+            "launches": launches, "launch_sizes": launch_sizes}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: kernel times at the main path's shapes
+# ---------------------------------------------------------------------------
+
+
+def raw_launch(lib, name: str, xs, outs, n: int, stream: int):
+    """One launch of kernel ``name`` through the C launcher, no wrapper."""
+    fn = getattr(lib, f"lodestar_fp_{name}")
+    ptrs = [t.data_ptr() for t in (*xs, *outs)]
+
+    def launch():
+        rc = fn(*ptrs, n, stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed with cudaError {rc}")
+
+    return launch
+
+
+def time_kernels(torch, rng, dev, sizes, launches):
+    """Each kernel at each timed shape: equal to its plain version, device
+    us per raw launch, host us per wrapper call and the bound; the plain
+    version's time at the kernel's primary shape, the one where the main
+    path spends the most of this kernel's device time.  ``sizes`` is the
+    launch-size histogram of the main path's run.  Returns the rows and the
+    launch floor: the
+    device time per launch of a one-element torch add, the least any
+    launch takes."""
+    from lodestar_tpu_torch.ops.bls12_381 import _build, fp_kernels as fpk
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    one, out = torch.ones(1, dtype=torch.int32, device=dev), torch.empty(1, dtype=torch.int32, device=dev)
+    floor_us = device_us(torch, lambda: torch.add(one, 1, out=out))
+    log(f"[timing] launch floor: {floor_us:.2f} us on the card per launch of a one-element torch add")
+    rows = {}
+    for name, (_, _, n_in, n_out, replaces) in KERNELS.items():
+        hist = sizes[name]
+        ns = sorted(hist)
+        full = kernel_inputs(torch, rng, max(ns), n_in, dev)
+        shapes, err = [], 0
+        for n in ns:
+            xs = [x[-n:].contiguous() for x in full]
+            kernel, plain = kernel_pair(torch, fpk, name, xs)
+            err = max(err, check_equal(torch, name, kernel, plain, f"timed n={n}"))
+            outs = [torch.empty_like(xs[0]) for _ in range(n_out)]
+            b_us, _ = bound_us(name, n)
+            shapes.append({
+                "n": n,
+                "launches": hist.get(n, 0),
+                "device_us": device_us(torch, raw_launch(lib, name, xs, outs, n, stream)),
+                "host_us_per_call": host_us_per_call(torch, kernel),
+                "bound_us": b_us,
+                "bound_us_13bit_yardstick": yardstick_13bit_us(name, n),
+            })
+        primary = max(shapes, key=lambda s: (s["launches"] * s["device_us"], s["n"]))
+        xs = [x[-primary["n"]:].contiguous() for x in full]
+        plain_ms = cuda_ms(torch, kernel_pair(torch, fpk, name, xs)[1], 5)
+        b_us, bound_by = bound_us(name, primary["n"])
+        per_verify = sum(s["launches"] * s["device_us"] for s in shapes) / 1e3
+        rows[name] = {
+            "name": name,
+            "route": "cuda",
+            "source": SOURCE,
+            "replaces": replaces,
+            "launches": launches.get(name, 0),
+            "max_abs_err": err,
+            "ms": primary["device_us"] / 1e3,
+            "plain_ms": plain_ms,
+            "bound_ms": b_us / 1e3,
+            "bound_by": bound_by,
+            "bound_ms_13bit_yardstick": yardstick_13bit_us(name, primary["n"]) / 1e3,
+            "library_ms": None,
+            "n": primary["n"],
+            "device_us": primary["device_us"],
+            "host_us_per_call": primary["host_us_per_call"],
+            "device_ms_per_verify": per_verify,
+            "shapes": shapes,
+        }
+        for s in shapes:
+            log(f"[timing] {name} n={s['n']:>6}: {s['device_us']:9.2f} us on the card per launch, "
+                f"{s['host_us_per_call']:8.2f} us host per call, bound {s['bound_us']:.3f} us "
+                f"(13-bit yardstick {s['bound_us_13bit_yardstick']:.3f} us), "
+                f"{s['launches']} launches per verify")
+        log(f"[timing] {name}: primary n={primary['n']} ({primary['device_us']:.2f} us, "
+            f"{primary['device_us'] / b_us:.1f}x its bound by {bound_by}), plain {plain_ms:.3f} ms, "
+            f"{per_verify:.2f} ms on the card per verify (launches x device us)")
+    return rows, floor_us
+
+
+# ---------------------------------------------------------------------------
+# phase 6: profile
+# ---------------------------------------------------------------------------
 
 
 def device_profile(torch, sets, dev, median_s: float):
@@ -293,7 +482,15 @@ def device_profile(torch, sets, dev, median_s: float):
     for e in top:
         log(f"[profile {len(sets)}]   {e.self_device_time_total / 1e3:9.1f} ms "
             f"{e.count:7d} x {e.key[:90]}")
-    return {"wall_s": wall_s, "device_busy_s": busy_s, "kernel_launches": n_launch}
+    ours = {}
+    for name in KERNELS:
+        evs = [e for e in kernels if f"{name}_kernel" in e.key]
+        ours[name] = {"ms": sum(e.self_device_time_total for e in evs) / 1e3,
+                      "launches": sum(e.count for e in evs)}
+        log(f"[profile {len(sets)}]   {name}: {ours[name]['ms']:.1f} ms on the card over "
+            f"{ours[name]['launches']} launches")
+    return {"wall_s": wall_s, "device_busy_s": busy_s, "kernel_launches": n_launch,
+            "hand_written": ours}
 
 
 def reference_check(torch, sets, dev):
@@ -346,7 +543,7 @@ def main(argv=None) -> int:
 
     # 3. kernels against their plain versions
     dev = torch.device("cuda")
-    rows = check_kernels(torch, rng, args.repeats * 10, dev)
+    check_kernels(torch, rng, dev)
 
     # 4. the main path
     t0 = time.perf_counter()
@@ -356,12 +553,17 @@ def main(argv=None) -> int:
     reference_check(torch, sets, dev)
     log("[check] device hash_to_g2 equals the host oracle on two messages")
     results = [run_width(torch, sets, wrong_key, w, args.repeats, dev) for w in widths]
-    results[0]["profile"] = device_profile(torch, sets[: widths[0]], dev, results[0]["median_s"])
-    # launches: the valid verify at the first (full) width
-    for row in rows.values():
-        row["launches"] = results[0]["launches"][row["name"]]
+    # launches and their sizes: the valid verify at the first (full) width
+    sizes, launches = results[0]["launch_sizes"], results[0]["launches"]
 
-    print(json.dumps({"main_path": results, "card": smi}), flush=True)
+    # 5. kernel times at the shapes of that verify
+    rows, floor_us = time_kernels(torch, rng, dev, sizes, launches)
+
+    # 6. profile
+    results[0]["profile"] = device_profile(torch, sets[: widths[0]], dev, results[0]["median_s"])
+
+    print(json.dumps({"main_path": results, "launch_floor_us": floor_us, "card": smi}),
+          flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -15,7 +15,9 @@ There is no other route: no fallback from a failed launch, no switch.
     f2_sqr(a)        -> K3 ``lodestar_fp_f2_sqr``    (a0+a1)(a0-a1), 2 a0 a1
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where
-it launches its kernel and nowhere else.
+it launches its kernel and nowhere else.  ``LAUNCH_SIZES`` keeps, per
+wrapper, the same launches as a histogram keyed by the number of elements
+``n`` of the launch.
 
 The plain versions follow ``fp.mont_mul_parallel``'s algorithm
 (``lodestar_tpu/ops/bls12_381/fp.py``) in int64 torch ops: the sum
@@ -39,6 +41,7 @@ from . import _build
 from .limbs import LIMB_BITS, MASK, NLIMBS, NPRIME_LIMBS, ONE_MONT, P_LIMBS, R2_LIMBS
 
 LAUNCHES: Dict[str, int] = {"mont_mul": 0, "f2_mul": 0, "f2_sqr": 0}
+LAUNCH_SIZES: Dict[str, Dict[int, int]] = {name: {} for name in LAUNCHES}
 
 _TABLES = {
     "p": P_LIMBS,
@@ -52,6 +55,7 @@ _TABLES = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        LAUNCH_SIZES[name].clear()
 
 
 @functools.lru_cache(maxsize=None)
@@ -233,6 +237,7 @@ def _launch(name: str, fn, n_out: int, *xs):
         if rc != 0:
             raise RuntimeError(f"{name} kernel launch failed with cudaError {rc}")
         LAUNCHES[name] += 1
+        LAUNCH_SIZES[name][n] = LAUNCH_SIZES[name].get(n, 0) + 1
     return outs
 
 

@@ -169,16 +169,201 @@ def test_convert_round_trip_and_range():
     assert (job.kind, job.n, job.bucket, job.args) == ("reject", 2, 0, None)
 
 
+def _kernel_source():
+    return open(os.path.join(os.path.dirname(fpk.__file__), "csrc", "fp_kernels.cu")).read()
+
+
+def _source_ints(src, pattern):
+    body = re.search(pattern, src).group(1)
+    return [int(x) for x in body.replace("\n", " ").split(",")]
+
+
 def test_kernel_source_constants():
-    """The CUDA source embeds p and -p^-1 mod 2^13 as literals; they must
-    be the limb tables', and its stated 32-bit bound must hold."""
-    src = open(os.path.join(os.path.dirname(fpk.__file__), "csrc", "fp_kernels.cu")).read()
-    body = re.search(r"kP\[NL\] = \{([^}]*)\}", src).group(1)
-    assert [int(x) for x in body.replace("\n", " ").split(",")] == [int(v) for v in limbs.P_LIMBS]
+    """The CUDA source embeds p and -p^-1 as literals, in 13-bit limbs for
+    K3 and in 26-bit digits for K1/K2; they must be the limb tables', and
+    the accumulator bounds it states must hold."""
+    src = _kernel_source()
+    # K3: 13-bit limbs, 32-bit accumulators
+    assert _source_ints(src, r"kP\[NL\] = \{([^}]*)\}") == [int(v) for v in limbs.P_LIMBS]
     assert int(re.search(r"N0INV = (\d+)u;", src).group(1)) == limbs.N0INV
     bound = 2 * limbs.NLIMBS * limbs.MASK ** 2 + (1 << (32 - limbs.LIMB_BITS))
     assert bound < 2 ** 32
     assert f"{bound:,}" in src
+    # K1/K2: 15 digits of 26 bits (R = 2^390 unchanged) in 16 slots
+    assert int(re.search(r"TPI = (\d+);", src).group(1)) in _TPIS
+    assert int(re.search(r"SLOTS = (\d+);", src).group(1)) == _SLOTS
+    assert int(re.search(r"ND = (\d+);", src).group(1)) == _ND
+    assert int(re.search(r"DBITS = (\d+);", src).group(1)) == _DBITS
+    assert _ND * _DBITS == limbs.R_EXP and _DBITS == 2 * limbs.LIMB_BITS
+    assert _source_ints(src, r"kP26\[SLOTS\] = \{([^}]*)\}") == _P26.tolist()
+    assert int(re.search(r"PINV26 = (\d+)u;", src).group(1)) == int(_PINV26)
+    assert int(re.search(r"P0_26 = (\d+)u;", src).group(1)) == P % (1 << _DBITS)
+    # lazy accumulators: 15 steps of 2 (K1) or 3 (K2) products, plus a carry
+    for products, width in ((2, 57), (3, 58)):
+        bound = 15 * products * _DMASK ** 2 + 2 ** 32
+        assert bound < 2 ** width and (bound >> _DBITS) < 2 ** 32
+        assert f"{15 * products} x (2^26-1)^2 + 2^32 = {bound:,} < 2^{width}" in src
+
+
+# ---------------------------------------------------------------------------
+# a numpy model of the cooperative K1/K2 (csrc/fp_kernels.cu): the same
+# digits, slots, reduction order and lane-level carry chains, for any TPI
+# the source's constant may take
+# ---------------------------------------------------------------------------
+
+_TPIS = (1, 2, 4, 8, 16)
+_SLOTS, _ND, _DBITS = 16, 15, 26
+_DMASK = (1 << _DBITS) - 1
+_U26, _M26 = np.uint64(_DBITS), np.uint64(_DMASK)
+_P26 = np.array([(P >> (_DBITS * j)) & _DMASK for j in range(_ND)] + [0], dtype=np.uint64)
+_PINV26 = np.uint64((-pow(P, -1, 1 << _DBITS)) % (1 << _DBITS))
+
+
+def _to_digits(x):
+    """(n, 30) 13-bit limbs -> (n, 16) slots: digit j = limb 2j + 2^13 limb
+    2j+1, slot 15 zero."""
+    x = x.astype(np.uint64)
+    d = x[:, 0::2] | (x[:, 1::2] << np.uint64(limbs.LIMB_BITS))
+    return np.concatenate([d, np.zeros((x.shape[0], 1), np.uint64)], 1)
+
+
+def _to_limbs(d):
+    out = np.empty((d.shape[0], limbs.NLIMBS), np.uint64)
+    out[:, 0::2] = d[:, :_ND] & np.uint64(limbs.MASK)
+    out[:, 1::2] = d[:, :_ND] >> np.uint64(limbs.LIMB_BITS)
+    return out
+
+
+def _lane_carry(out0, out1):
+    """The ballot chain across lanes: (n, TPI) carry-outs for a carry in of
+    0 and 1 -> (carry into each lane, carry out of the group)."""
+    tpi = out0.shape[1]
+    w = np.uint64(1) << np.arange(tpi, dtype=np.uint64)
+    G = (out0 * w).sum(1)
+    Pm = ((out1 & ~out0 & np.uint64(1)) * w).sum(1)
+    S = Pm + (G << np.uint64(1))
+    return ((S ^ Pm)[:, None] >> np.arange(tpi, dtype=np.uint64)) & np.uint64(1), (
+        S >> np.uint64(tpi)
+    ) & np.uint64(1)
+
+
+def _add_digits(w, c):
+    """Each lane's D digits (n, TPI, D) plus a carry in: canonical digits,
+    carry out."""
+    d = np.empty_like(w)
+    for r in range(w.shape[2]):
+        t = w[:, :, r] + c
+        d[:, :, r], c = t & _M26, t >> _U26
+    return d, c
+
+
+def _sub_digits(x, y, b):
+    d = np.empty_like(x)
+    for r in range(x.shape[2]):
+        yb = y[:, :, r] + b
+        d[:, :, r], b = (x[:, :, r] - yb) & _M26, (x[:, :, r] < yb).astype(np.uint64)
+    return d, b
+
+
+def _sub_group(x, y):
+    """x - y over (n, TPI, D) slots, borrows across lanes by the ballot
+    chain; returns the digits and the borrow out of slot 15."""
+    zero = np.zeros(x.shape[:2], np.uint64)
+    _, b0 = _sub_digits(x, y, zero)
+    _, b1 = _sub_digits(x, y, zero + np.uint64(1))
+    borrow, out = _lane_carry(b0, b1)
+    return _sub_digits(x, y, borrow)[0], out
+
+
+def _redc_step(u, pk, i):
+    u0 = u[:, i : i + 1]
+    m = ((u0 & np.uint64(0xFFFFFFFF)) * _PINV26) & _M26
+    u = u + m * pk
+    carry = (u0 + m * _P26[0]) >> _U26
+    assert not (u[:, i] & _M26).any()
+    u[:, i] = 0
+    u[:, i + 1] += carry[:, 0]
+    return u
+
+
+def _finish(u, tpi, width):
+    """Lazy slots (logical digit k in slot k - 1) -> canonical digits mod p."""
+    assert (u < 2 ** width).all()
+    u = np.roll(u, 1, axis=1)  # ring_up: logical digit k to slot k
+    assert not u[:, _ND].any()
+    zero = np.zeros((u.shape[0], 1), np.uint64)
+    v = (u & _M26) + np.concatenate([zero, u[:, :-1] >> _U26], 1)
+    w = (v & _M26) + np.concatenate([zero, v[:, :-1] >> _U26], 1)
+    assert (w <= _DMASK + 2 ** 7).all()
+    w = w.reshape(-1, tpi, _SLOTS // tpi)
+    zero = np.zeros(w.shape[:2], np.uint64)
+    _, o0 = _add_digits(w, zero)
+    _, o1 = _add_digits(w, zero + np.uint64(1))
+    carry, out = _lane_carry(o0, o1)
+    assert not out.any()
+    d = _add_digits(w, carry)[0]
+    p = np.broadcast_to(_P26.reshape(1, tpi, -1), d.shape)
+    diff, keep = _sub_group(d, p)
+    return np.where(keep[:, None, None] != 0, d, diff).reshape(-1, _SLOTS)
+
+
+def model_mont_mul(a, b, tpi):
+    x, y, pk = _to_digits(a), _to_digits(b), _P26[None]
+    u = np.zeros_like(x)
+    for i in range(_ND):
+        u = u + x[:, i : i + 1] * y
+        u = _redc_step(u, pk, i)
+        y, pk = np.roll(y, 1, axis=1), np.roll(pk, 1, axis=1)  # ring_up
+    return _to_limbs(_finish(u, tpi, 57))
+
+
+def model_f2_mul(a, b, tpi):
+    x0, x1, y0, y1 = (_to_digits(t) for t in (a[0], a[1], b[0], b[1]))
+    p = np.broadcast_to(_P26.reshape(1, tpi, -1), (x0.shape[0], tpi, _SLOTS // tpi))
+    ny1, out = _sub_group(p, y1.reshape(p.shape))
+    assert not out.any()
+    ny1, pk = ny1.reshape(-1, _SLOTS), _P26[None]
+    u, v = np.zeros_like(x0), np.zeros_like(x0)
+    for i in range(_ND):
+        u = u + x0[:, i : i + 1] * y0 + x1[:, i : i + 1] * ny1
+        v = v + x0[:, i : i + 1] * y1 + x1[:, i : i + 1] * y0
+        u, v = _redc_step(u, pk, i), _redc_step(v, pk, i)
+        y0, y1, ny1, pk = (np.roll(t, 1, axis=1) for t in (y0, y1, ny1, pk))
+    return _to_limbs(_finish(u, tpi, 58)), _to_limbs(_finish(v, tpi, 58))
+
+
+def _model_operands(seed, n=40):
+    vals = [_rand_ints(seed + k, n) for k in range(4)]
+    for i, x in enumerate(EDGES):
+        for j, y in enumerate(EDGES):
+            for k, v in enumerate((x, y, EDGES[(i + j) % 6], EDGES[(i + 2 * j) % 6])):
+                vals[k].append(v)
+    return [_plain_limbs(v) for v in vals]
+
+
+@pytest.mark.parametrize("tpi", _TPIS)
+def test_coop_model_mont_mul_equals_plain(tpi):
+    a, b, _, _ = _model_operands(tpi)
+    want = _np(fpk.mont_mul_plain(_t(a), _t(b)))
+    assert np.array_equal(model_mont_mul(a, b, tpi), want)
+
+
+@pytest.mark.parametrize("tpi", _TPIS)
+def test_coop_model_f2_mul_equals_plain(tpi):
+    a0, a1, b0, b1 = _model_operands(tpi + 10)
+    w0, w1 = fpk.f2_mul_plain((_t(a0), _t(a1)), (_t(b0), _t(b1)))
+    g0, g1 = model_f2_mul((a0, a1), (b0, b1), tpi)
+    assert np.array_equal(g0, _np(w0)) and np.array_equal(g1, _np(w1))
+
+
+def test_coop_model_digit_conversion_round_trip():
+    x = _plain_limbs(_rand_ints(31, 16) + EDGES)
+    d = _to_digits(x)
+    assert (d[:, :_ND] <= _DMASK).all() and not d[:, _ND].any()
+    assert [sum(int(v) << (_DBITS * j) for j, v in enumerate(r)) for r in d] == [
+        jlimbs.limbs_to_int(r) for r in x
+    ]
+    assert np.array_equal(_to_limbs(d), x)
 
 
 # ---------------------------------------------------------------------------
