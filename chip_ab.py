@@ -11,8 +11,9 @@ source ``csrc/fp_kernels.cu`` taken from SPEC:
 
 * ``tree``: the working tree's source unchanged;
 * ``rev:REV``: the source as it is at git revision REV;
-* ``tpi:N``: the working tree's source with the lanes per element of K1
-  and K2 (``constexpr int TPI``) set to N.
+* ``tpi:N``: the working tree's source with the lanes per element of all
+  three kernels (``constexpr int TPI``, the one constant they share) set
+  to N.
 
 So only the kernel source differs between the sides: the wrappers, the
 launchers' interface and the measuring script are the same.
@@ -58,9 +59,11 @@ def kernel_source(spec: str, repo: str = REPO) -> str:
                               capture_output=True, text=True, check=True).stdout
     if kind == "tpi" and arg.isdigit():
         if len(_TPI.findall(tree)) != 1:
-            raise ValueError("the kernel source has no single `constexpr int TPI` line")
+            raise ValueError("the kernel source has no single `constexpr int TPI` line "
+                             "(the lanes per element of all three kernels)")
         return _TPI.sub(f"constexpr int TPI = {int(arg)};", tree)
-    raise ValueError(f"unknown side spec {spec!r}: tree, rev:REV or tpi:N")
+    raise ValueError(f"unknown side spec {spec!r}: tree, rev:REV or tpi:N "
+                     "(N lanes per element in all three kernels)")
 
 
 def prepare(pairs, ab_dir: str = AB_DIR, repo: str = REPO) -> list:

@@ -7,7 +7,10 @@ Phases, one line each (any failure raises and exits non-zero):
 
 1. Device: torch and CUDA versions, the card's name and power limit.
 2. Build: compile the hand-written kernels from ``csrc/fp_kernels.cu``
-   (``-Xptxas -v``: registers and spills per kernel).
+   (``-Xptxas -v``: registers and spills per kernel).  K1-K3 share one
+   design: eight lanes of a warp per element on 26-bit digits, CIOS with
+   lazy 64-bit accumulators; K3 runs its two products, (a0+a1)(a0+(p-a1))
+   and a0 (2 a1), side by side, one reduction each.
 3. Kernels: K1-K3 on seeded inputs at ``CHECK_SIZES`` elements (the edge
    values 0, 1, 2, p-1, p-2, (p-1)/2 in every pairing where n >= 36) and
    on broadcast operands with leading axes, held bit for bit against

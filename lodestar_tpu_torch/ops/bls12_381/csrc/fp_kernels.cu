@@ -10,8 +10,8 @@
 // little-endian, in Montgomery form with R = 2^390.  Limbs are below 2^13,
 // so the int32 storage is read as uint32.  Any exact Montgomery product with
 // R = 2^390 that returns the canonical residue is bit-identical to the
-// reference (the canonical value is unique), so neither design below copies
-// the TPU's Kogge-Stone sublane networks.
+// reference (the canonical value is unique), so the design below does not
+// copy the TPU's Kogge-Stone sublane networks.
 //
 // What bounds them on the H100: per element K1 moves 360 bytes (two inputs,
 // one output), K2 720 and K3 480.  The least work known for a product
@@ -24,18 +24,19 @@
 // many of the 132 SMs have work.
 //
 // ---------------------------------------------------------------------------
-// K1 and K2: eight lanes per element, 26-bit digits (redesigned for Hopper)
+// One design for the three kernels: eight lanes per element, 26-bit digits
 // ---------------------------------------------------------------------------
 //
 // * Digits: 15 digits of 26 bits (15 x 26 = 390, so R is unchanged) in 16
 //   slots, slot 15 zero.  The boundary conversion is a pair of limbs: digit
 //   j = limb 2j + 2^13 limb 2j+1, and back.
 // * TPI lanes of a warp cooperate on one element (threads per instance, a
-//   compile-time constant); lane L holds slots L*D .. L*D+D-1, D = 16/TPI.
-//   Lane L reads and writes limbs 4L .. 4L+3 of its row at TPI = 8, so the
-//   lanes of an element touch its 120 contiguous bytes and a warp four
-//   neighbouring rows: the accesses coalesce without staging.  Rows are 120
-//   bytes; TMA would spend more on its set-up than it saves.
+//   compile-time constant shared by K1-K3); lane L holds slots L*D ..
+//   L*D+D-1, D = 16/TPI.  Lane L reads and writes limbs 4L .. 4L+3 of its
+//   row at TPI = 8, so the lanes of an element touch its 120 contiguous
+//   bytes and a warp four neighbouring rows: the accesses coalesce without
+//   staging.  Rows are 120 bytes; TMA would spend more on its set-up than
+//   it saves.
 // * TPI = 8 was measured against 16, 4, 2 and 1 on the main path's shapes
 //   (PERF.md, findings): the fewer the lanes, the longer each lane's chain and
 //   the fewer SMs a small launch reaches; the more, the more shuffles an
@@ -52,47 +53,52 @@
 //   shuffle each, whatever D is; neither waits on the chain), and only the
 //   broadcast of u_0 is on the chain.  Slot i then drops its digit and slot
 //   i + 1 takes its carry, which every lane computes from u_0.
-// * Accumulator bound: a slot adds at most 15 steps of products between two
-//   drops, plus one carry below 2^32.  K1 adds two products a step:
-//     30 x (2^26-1)^2 + 2^32 = 135,107,989,089,550,366 < 2^57;
+// * Accumulator bound: a slot adds at most 15 steps of terms between two
+//   drops, plus one carry below 2^32.  A term is a product of two digits of
+//   at most 2^26 - 1; a digit of an uncarried sum of two canonical values
+//   is at most 2^27 - 2 = 2 (2^26 - 1), so a product by one counts as two
+//   terms.  K1 adds two terms a step (a_i b_k, m p_k):
+//     K1: 30 x (2^26-1)^2 + 2^32 = 135,107,989,089,550,366 < 2^57;
 //   K2 three (c0 = a0 b0 + a1 (p - b1) and c1 = a0 b1 + a1 b0, each reduced
 //   once):
-//     45 x (2^26-1)^2 + 2^32 = 202,661,981,486,841,901 < 2^58.
-//   So the carry of a digit, u >> 26, is below 2^32.  T = (x + mu p) / R <
-//   2p: x < 2p^2 and mu < R, and 2p^2/R < p.
+//     K2: 45 x (2^26-1)^2 + 2^32 = 202,661,981,486,841,901 < 2^58;
+//   K3 three (a canonical factor times an uncarried one, and m p_k):
+//     K3: 45 x (2^26-1)^2 + 2^32 = 202,661,981,486,841,901 < 2^58.
+//   So the carry of a digit, u >> 26, is below 2^32, as finish() needs.
+//   With both factors of a product uncarried a step would add five terms,
+//   75 x (2^26-1)^2 + 2^32 > 2^58, whose carry does not fit 32 bits.
+//   T = (x + mu p) / R < 2p for factors below 2p: x < 4p^2, mu < R, and
+//   4p^2/R < p/128.  So one conditional subtract of p makes T canonical.
 // * The result: two carry passes between neighbouring slots (shfl_up
 //   across lanes) leave digits of at most 2^26 + 2^7, whose carries are
 //   single bits.  Each lane runs its D digits for a carry in of 0 and of 1;
 //   a ballot of the lanes' generate and propagate bits, packed as integers
 //   P + 2G, runs the chain across lanes in one addition (bit L of the sum
 //   is bit L of P XOR the carry into lane L).  The conditional subtract of
-//   p and K2's p - b1 resolve their borrows the same way.  Lanes past n
-//   compute on zeros, so that every lane of a warp reaches every shuffle
-//   and ballot, and skip only the store.
+//   p, the subtraction p - b and K3's sum a0 + a1 resolve their carries and
+//   borrows the same way.  Lanes past n compute on zeros, so that every
+//   lane of a warp reaches every shuffle and ballot, and skip only the
+//   store.
 // * K2 is the schoolbook product with one reduction per coefficient, not
 //   Karatsuba: Karatsuba saves one of four digit products but costs a third
 //   reduction and five modular additions, each a cross-lane carry chain of
 //   shuffles and ballots, and those chains, not the multiplies, set the
 //   time.  The one subtraction left, p - b1, is one borrow chain.  The two
 //   coefficients' chains are independent and interleave.
+// * K3 is c0 = (a0 + a1)(a0 + (p - a1)) and c1 = a0 (2 a1): two products,
+//   each reduced once, run side by side as K2's coefficients are, with
+//   half of K2's digit products a step.  A square has nothing left to share
+//   between c0 and c1: a form that reuses a product (a0 a1 for both, or
+//   c1 = (a0 + a1)^2 - a0^2 - a1^2) needs a third product and reduction and
+//   more modular additions, each a cross-lane chain.  Of the factors only
+//   a0 + a1 is resolved to canonical digits, by one carry chain that runs
+//   beside the borrow chain of p - a1; a0 + (p - a1) and 2 a1 stay
+//   uncarried.  So each product has one canonical factor, broadcast a digit
+//   a step, and one uncarried, rotated through the slots: the K3 bound
+//   above.  All four factors are below 2p < 2^383, so they fit 15 digits.
 // * Not on the tensor cores: a_i b differs per element, so it is no matrix
 //   product.  The products by constants (the digits m p) could be, as int8
 //   products; that is later work (PERF.md, open questions).
-//
-// ---------------------------------------------------------------------------
-// K3: one thread per element, 13-bit digits (the first port's design)
-// ---------------------------------------------------------------------------
-//
-// One thread computes one element with all 30 limbs in registers, CIOS with
-// 13-bit digits and 32-bit accumulators: in iteration i every limb u[j]
-// gains a_i*b_j + m*p_j <= 2*(2^13-1)^2, a limb holds at most 30 such terms
-// before it is shifted out, and limb 0 also takes the shifted carry
-// (< 2^19):
-//   2*30*(2^13-1)^2 + 2^19 = 4,026,073,148 < 2^32.
-// The serial carry pass after the loop adds at most ~2^19 to a limb, still
-// under 2^32.  The result T/R lies in [0, 2p) and one conditional subtract
-// of p makes it canonical.  A thread reads 120 contiguous bytes, so a
-// warp's loads do not coalesce.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -101,10 +107,6 @@ namespace {
 constexpr int NL = 30;
 constexpr int BITS = 13;
 constexpr uint32_t MASK = (1u << BITS) - 1u;
-
-// ---------------------------------------------------------------------------
-// K1, K2: TPI lanes per element, 26-bit digits
-// ---------------------------------------------------------------------------
 
 constexpr int TPI = 8;                // lanes per element
 constexpr int SLOTS = 16;             // 15 digits and a zero
@@ -193,7 +195,7 @@ __device__ __forceinline__ uint32_t lane_carry(uint32_t out0, uint32_t out1, con
   return ((S ^ P) >> s.lane) & 1u;
 }
 
-// d = w + c over the lane's digits (each at most 2^26 + 2^7), canonical;
+// d = w + c over the lane's digits (each at most 2^27 - 2), canonical;
 // returns the carry out of the lane, 0 or 1.
 __device__ __forceinline__ uint32_t add_digits(uint32_t d[D], const uint32_t w[D], uint32_t c) {
 #pragma unroll
@@ -215,6 +217,16 @@ __device__ __forceinline__ uint32_t sub_digits(uint32_t d[D], const uint32_t x[D
     b = x[r] < yb;
   }
   return b;
+}
+
+// d = w over the group, canonical, for digits of at most 2^27 - 2 - the
+// single-bit carries run across lanes; returns the carry out of slot 15.
+__device__ __forceinline__ uint32_t resolve(uint32_t d[D], const uint32_t w[D], const Slot& s) {
+  uint32_t out;
+  const uint32_t o0 = add_digits(d, w, 0u);
+  const uint32_t o1 = add_digits(d, w, 1u);
+  add_digits(d, w, lane_carry(o0, o1, s, &out));
+  return out;
 }
 
 // d = x - y over the group for canonical x >= y - the borrow runs across
@@ -261,10 +273,7 @@ __device__ __forceinline__ void finish(uint32_t d[D], uint64_t u[D], const uint3
   for (int r = 0; r < D; ++r)
     w[r] = static_cast<uint32_t>((v[r] & DMASK) + (r ? v[r - 1] >> DBITS : (s.lane ? c2 : 0u)));
   // w < 2^26 + 2^7: single-bit carries; none leaves slot 15 (value < 2^390)
-  uint32_t out;
-  const uint32_t o0 = add_digits(d, w, 0u);
-  const uint32_t o1 = add_digits(d, w, 1u);
-  add_digits(d, w, lane_carry(o0, o1, s, &out));
+  resolve(d, w, s);
   // conditional subtract: a borrow out of slot 15 means d < p, keep d
   uint32_t diff[D];
   const uint32_t keep = sub_group(diff, d, p, s);
@@ -341,141 +350,54 @@ f2_mul_kernel(const int32_t* __restrict__ a0, const int32_t* __restrict__ a1,
   store_digits(c1, s, r);
 }
 
-inline unsigned coop_blocks_for(int64_t n) {
-  return static_cast<unsigned>((n * TPI + COOP_THREADS - 1) / COOP_THREADS);
-}
-
-// ---------------------------------------------------------------------------
-// K3: one thread per element, 13-bit digits
-// ---------------------------------------------------------------------------
-
-// -p^{-1} mod 2^13
-constexpr uint32_t N0INV = 8189u;
-
-// p as 30 little-endian radix-2^13 limbs
-__constant__ uint32_t kP[NL] = {
-    2731, 8189, 8191, 7679, 7071, 8191, 1359, 8150, 3071, 245,
-    7561, 3425, 2575, 6249, 7580, 599,  4997, 7207, 7634, 3784,
-    6861, 421,  7897, 884,  6731, 7988, 3679, 980,  17,   13};
-
-constexpr int THREADS = 64;
-
-__device__ __forceinline__ void load(uint32_t x[NL], const int32_t* src) {
-#pragma unroll
-  for (int j = 0; j < NL; ++j) x[j] = static_cast<uint32_t>(src[j]);
-}
-
-__device__ __forceinline__ void store(int32_t* dst, const uint32_t x[NL]) {
-#pragma unroll
-  for (int j = 0; j < NL; ++j) dst[j] = static_cast<int32_t>(x[j]);
-}
-
-// r = u - p if u >= p else u, for canonical limbs u holding a value < 2p.
-// r may alias u.
-__device__ __forceinline__ void cond_sub_p(uint32_t r[NL], const uint32_t u[NL]) {
-  uint32_t d[NL];
-  int32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < NL; ++j) {
-    const int32_t v = static_cast<int32_t>(u[j]) - static_cast<int32_t>(kP[j]) - borrow;
-    borrow = v < 0;
-    d[j] = static_cast<uint32_t>(v) & MASK;
-  }
-  // borrow set: u < p, keep u
-#pragma unroll
-  for (int j = 0; j < NL; ++j) r[j] = borrow ? u[j] : d[j];
-}
-
-// r = a + b mod p on canonical limbs.  r may alias a or b.
-__device__ __forceinline__ void add_mod(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
-  uint32_t c = 0;
-#pragma unroll
-  for (int j = 0; j < NL; ++j) {
-    const uint32_t v = a[j] + b[j] + c;
-    r[j] = v & MASK;
-    c = v >> BITS;
-  }
-  // a + b < 2p < 2^390: no carry leaves limb 29
-  cond_sub_p(r, r);
-}
-
-// r = a - b mod p on canonical limbs.  r may alias a or b.
-__device__ __forceinline__ void sub_mod(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
-  int32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < NL; ++j) {
-    const int32_t v = static_cast<int32_t>(a[j]) - static_cast<int32_t>(b[j]) - borrow;
-    borrow = v < 0;
-    r[j] = static_cast<uint32_t>(v) & MASK;
-  }
-  // a < b: the limbs hold a - b + 2^390; adding p and dropping the carry
-  // out of limb 29 (exactly 2^390) leaves a - b + p in [0, p)
-  const uint32_t pmask = 0u - static_cast<uint32_t>(borrow);
-  uint32_t c = 0;
-#pragma unroll
-  for (int j = 0; j < NL; ++j) {
-    const uint32_t v = r[j] + (kP[j] & pmask) + c;
-    r[j] = v & MASK;
-    c = v >> BITS;
-  }
-}
-
-// r = a * b * 2^-390 mod p, canonical.  r may alias a or b: it is written
-// only after the last read of the inputs.
-__device__ __forceinline__ void mont_core(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
-  uint32_t u[NL];
-#pragma unroll
-  for (int j = 0; j < NL; ++j) u[j] = 0;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    const uint32_t ai = a[i];
-#pragma unroll
-    for (int j = 0; j < NL; ++j) u[j] += ai * b[j];
-    // only the low 13 bits of the product are needed, so the wrap is harmless
-    const uint32_t m = (u[0] * N0INV) & MASK;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) u[j] += m * kP[j];
-    // u[0] is now a multiple of 2^13: shift the digit out
-    const uint32_t carry = u[0] >> BITS;
-#pragma unroll
-    for (int j = 0; j < NL - 1; ++j) u[j] = u[j + 1];
-    u[NL - 1] = 0;
-    u[0] += carry;
-  }
-  // one serial carry pass: the value is below 2p < 2^390, so no carry
-  // leaves limb 29 and the limbs come out canonical
-  uint32_t c = 0;
-#pragma unroll
-  for (int j = 0; j < NL; ++j) {
-    const uint32_t v = u[j] + c;
-    u[j] = v & MASK;
-    c = v >> BITS;
-  }
-  cond_sub_p(r, u);
-}
-
-// Fp2 square: c0 = (a0+a1)(a0-a1), c1 = 2 a0 a1
-__global__ void __launch_bounds__(THREADS)
+// Fp2 square: c0 = (a0 + a1)(a0 + (p - a1)), c1 = a0 (2 a1), each reduced
+// once.  The broadcast factors (a0 + a1, a0) are canonical, the rotated
+// ones (a0 + (p - a1), 2 a1) uncarried.
+__global__ void __launch_bounds__(COOP_THREADS)
 f2_sqr_kernel(const int32_t* __restrict__ a0, const int32_t* __restrict__ a1,
               int32_t* __restrict__ c0, int32_t* __restrict__ c1, int64_t n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t off = i * NL;
-  uint32_t x[NL], y[NL], s[NL];
-  load(x, a0 + off);
-  load(y, a1 + off);
-  add_mod(s, x, y);
-  sub_mod(y, x, y);
-  mont_core(s, s, y);
-  store(c0 + off, s);
-  load(y, a1 + off);
-  mont_core(x, x, y);
-  add_mod(x, x, x);
-  store(c1 + off, x);
+  const Slot s = slot_of(n);
+  uint32_t x0[D], x1[D], w[D], sum[D], y0[D], p[D], pk[D], r[D];
+  load_digits(x0, a0, s);
+  load_digits(x1, a1, s);
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    p[j] = pk[j] = kP26[s.lane * D + j];
+    w[j] = x0[j] + x1[j];
+  }
+  resolve(sum, w, s);       // a0 + a1 < 2p: no carry out
+  sub_group(y0, p, x1, s);  // p - a1: a1 <= p - 1, no borrow out
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    y0[j] += x0[j];  // a0 + (p - a1) < 2p
+    x1[j] <<= 1;     // 2 a1 < 2p
+  }
+  uint64_t u[D] = {}, v[D] = {};
+#pragma unroll
+  for (int i = 0; i < ND; ++i) {
+    const uint32_t si = __shfl_sync(FULL, sum[i % D], i / D, TPI);
+    const uint32_t x0i = __shfl_sync(FULL, x0[i % D], i / D, TPI);
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      u[j] += static_cast<uint64_t>(si) * y0[j];
+      v[j] += static_cast<uint64_t>(x0i) * x1[j];
+    }
+    redc_step(u, pk, s.lane, i);
+    redc_step(v, pk, s.lane, i);
+    if (i + 1 < ND) {
+      ring_up(y0, s.lane);
+      ring_up(x1, s.lane);
+      ring_up(pk, s.lane);
+    }
+  }
+  finish(r, u, p, s);
+  store_digits(c0, s, r);
+  finish(r, v, p, s);
+  store_digits(c1, s, r);
 }
 
-inline unsigned blocks_for(int64_t n) {
-  return static_cast<unsigned>((n + THREADS - 1) / THREADS);
+inline unsigned coop_blocks_for(int64_t n) {
+  return static_cast<unsigned>((n * TPI + COOP_THREADS - 1) / COOP_THREADS);
 }
 
 }  // namespace
@@ -503,7 +425,7 @@ extern "C" int lodestar_fp_f2_mul(const void* a0, const void* a1, const void* b0
 
 extern "C" int lodestar_fp_f2_sqr(const void* a0, const void* a1, void* c0, void* c1,
                                   int64_t n, void* stream) {
-  f2_sqr_kernel<<<blocks_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  f2_sqr_kernel<<<coop_blocks_for(n), COOP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(a0), static_cast<const int32_t*>(a1),
       static_cast<int32_t*>(c0), static_cast<int32_t*>(c1), n);
   return static_cast<int>(cudaGetLastError());

@@ -179,17 +179,15 @@ def _source_ints(src, pattern):
 
 
 def test_kernel_source_constants():
-    """The CUDA source embeds p and -p^-1 as literals, in 13-bit limbs for
-    K3 and in 26-bit digits for K1/K2; they must be the limb tables', and
-    the accumulator bounds it states must hold."""
+    """The CUDA source embeds p and -p^-1 as literals in 26-bit digits;
+    they must be the limb tables', the accumulator bounds it states must
+    hold, and its three kernels must share the one cooperative design."""
     src = _kernel_source()
-    # K3: 13-bit limbs, 32-bit accumulators
-    assert _source_ints(src, r"kP\[NL\] = \{([^}]*)\}") == [int(v) for v in limbs.P_LIMBS]
-    assert int(re.search(r"N0INV = (\d+)u;", src).group(1)) == limbs.N0INV
-    bound = 2 * limbs.NLIMBS * limbs.MASK ** 2 + (1 << (32 - limbs.LIMB_BITS))
-    assert bound < 2 ** 32
-    assert f"{bound:,}" in src
-    # K1/K2: 15 digits of 26 bits (R = 2^390 unchanged) in 16 slots
+    # one design: every kernel launches TPI lanes per element, and no
+    # 13-bit per-thread code is left
+    assert src.count("<<<coop_blocks_for(n), COOP_THREADS, 0,") == 3
+    assert "kP[NL]" not in src and "N0INV" not in src and "THREADS = 64" not in src
+    # 15 digits of 26 bits (R = 2^390 unchanged) in 16 slots
     assert int(re.search(r"TPI = (\d+);", src).group(1)) in _TPIS
     assert int(re.search(r"SLOTS = (\d+);", src).group(1)) == _SLOTS
     assert int(re.search(r"ND = (\d+);", src).group(1)) == _ND
@@ -198,15 +196,22 @@ def test_kernel_source_constants():
     assert _source_ints(src, r"kP26\[SLOTS\] = \{([^}]*)\}") == _P26.tolist()
     assert int(re.search(r"PINV26 = (\d+)u;", src).group(1)) == int(_PINV26)
     assert int(re.search(r"P0_26 = (\d+)u;", src).group(1)) == P % (1 << _DBITS)
-    # lazy accumulators: 15 steps of 2 (K1) or 3 (K2) products, plus a carry
-    for products, width in ((2, 57), (3, 58)):
-        bound = 15 * products * _DMASK ** 2 + 2 ** 32
-        assert bound < 2 ** width and (bound >> _DBITS) < 2 ** 32
-        assert f"{15 * products} x (2^26-1)^2 + 2^32 = {bound:,} < 2^{width}" in src
+    # lazy accumulators: 15 steps of digit products, plus a carry.  K1: a_i
+    # b_k and m p_k; K2: two products and m p_k; K3: a canonical digit times
+    # an uncarried one (at most 2^27 - 2) and m p_k
+    step = {"K1": 2 * _DMASK**2, "K2": 3 * _DMASK**2, "K3": _DMASK * (2 * _DMASK) + _DMASK**2}
+    for kernel, width in (("K1", 57), ("K2", 58), ("K3", 58)):
+        bound = 15 * step[kernel] + 2**32
+        assert bound < 2**width and (bound >> _DBITS) < 2**32
+        terms = 15 * step[kernel] // _DMASK**2
+        assert f"{kernel}: {terms} x (2^26-1)^2 + 2^32 = {bound:,} < 2^{width}" in src
+    assert bound == _K3_BOUND
+    # both factors of a K3 product uncarried: the carry would not fit 32 bits
+    assert (15 * ((2 * _DMASK) ** 2 + _DMASK**2) + 2**32) >> _DBITS >= 2**32
 
 
 # ---------------------------------------------------------------------------
-# a numpy model of the cooperative K1/K2 (csrc/fp_kernels.cu): the same
+# a numpy model of the cooperative K1-K3 (csrc/fp_kernels.cu): the same
 # digits, slots, reduction order and lane-level carry chains, for any TPI
 # the source's constant may take
 # ---------------------------------------------------------------------------
@@ -217,6 +222,8 @@ _DMASK = (1 << _DBITS) - 1
 _U26, _M26 = np.uint64(_DBITS), np.uint64(_DMASK)
 _P26 = np.array([(P >> (_DBITS * j)) & _DMASK for j in range(_ND)] + [0], dtype=np.uint64)
 _PINV26 = np.uint64((-pow(P, -1, 1 << _DBITS)) % (1 << _DBITS))
+# K3's accumulator bound, as the source states it
+_K3_BOUND = 45 * _DMASK**2 + 2**32
 
 
 def _to_digits(x):
@@ -275,6 +282,20 @@ def _sub_group(x, y):
     return _sub_digits(x, y, borrow)[0], out
 
 
+def _resolve_group(w, tpi):
+    """(n, 16) digits of at most 2^27 - 2 -> canonical digits, the carries
+    run across lanes by the ballot chain (the source's ``resolve``); the
+    value is below 2^390, so no carry leaves slot 15."""
+    assert (w <= 2 * _DMASK).all()
+    w = w.reshape(-1, tpi, _SLOTS // tpi)
+    zero = np.zeros(w.shape[:2], np.uint64)
+    _, o0 = _add_digits(w, zero)
+    _, o1 = _add_digits(w, zero + np.uint64(1))
+    carry, out = _lane_carry(o0, o1)
+    assert not out.any()
+    return _add_digits(w, carry)[0].reshape(-1, _SLOTS)
+
+
 def _redc_step(u, pk, i):
     u0 = u[:, i : i + 1]
     m = ((u0 & np.uint64(0xFFFFFFFF)) * _PINV26) & _M26
@@ -295,13 +316,7 @@ def _finish(u, tpi, width):
     v = (u & _M26) + np.concatenate([zero, u[:, :-1] >> _U26], 1)
     w = (v & _M26) + np.concatenate([zero, v[:, :-1] >> _U26], 1)
     assert (w <= _DMASK + 2 ** 7).all()
-    w = w.reshape(-1, tpi, _SLOTS // tpi)
-    zero = np.zeros(w.shape[:2], np.uint64)
-    _, o0 = _add_digits(w, zero)
-    _, o1 = _add_digits(w, zero + np.uint64(1))
-    carry, out = _lane_carry(o0, o1)
-    assert not out.any()
-    d = _add_digits(w, carry)[0]
+    d = _resolve_group(w, tpi).reshape(-1, tpi, _SLOTS // tpi)
     p = np.broadcast_to(_P26.reshape(1, tpi, -1), d.shape)
     diff, keep = _sub_group(d, p)
     return np.where(keep[:, None, None] != 0, d, diff).reshape(-1, _SLOTS)
@@ -332,6 +347,34 @@ def model_f2_mul(a, b, tpi):
     return _to_limbs(_finish(u, tpi, 58)), _to_limbs(_finish(v, tpi, 58))
 
 
+def _f2_sqr_steps(x, y, x0, y1):
+    """K3's loop: u = x y and v = x0 y1, each reduced once, with the
+    broadcast factors x and x0 canonical and the rotated ones y and y1
+    uncarried.  Asserts the source's K3 bound after every step."""
+    pk = _P26[None]
+    u, v = np.zeros_like(x), np.zeros_like(x)
+    for i in range(_ND):
+        u = u + x[:, i : i + 1] * y
+        v = v + x0[:, i : i + 1] * y1
+        u, v = _redc_step(u, pk, i), _redc_step(v, pk, i)
+        assert (u < _K3_BOUND).all() and (v < _K3_BOUND).all()
+        y, y1, pk = (np.roll(t, 1, axis=1) for t in (y, y1, pk))
+    return u, v
+
+
+def model_f2_sqr(a, tpi):
+    x0, x1 = _to_digits(a[0]), _to_digits(a[1])
+    s = _resolve_group(x0 + x1, tpi)  # a0 + a1 < 2p, canonical
+    p = np.broadcast_to(_P26.reshape(1, tpi, -1), (x0.shape[0], tpi, _SLOTS // tpi))
+    ny1, out = _sub_group(p, x1.reshape(p.shape))
+    assert not out.any()
+    y0 = ny1.reshape(-1, _SLOTS) + x0  # a0 + (p - a1) < 2p, uncarried
+    y1 = x1 << np.uint64(1)  # 2 a1 < 2p, uncarried
+    assert (y0 <= 2 * _DMASK).all() and (y1 <= 2 * _DMASK).all()
+    u, v = _f2_sqr_steps(s, y0, x0, y1)
+    return _to_limbs(_finish(u, tpi, 58)), _to_limbs(_finish(v, tpi, 58))
+
+
 def _model_operands(seed, n=40):
     vals = [_rand_ints(seed + k, n) for k in range(4)]
     for i, x in enumerate(EDGES):
@@ -354,6 +397,25 @@ def test_coop_model_f2_mul_equals_plain(tpi):
     w0, w1 = fpk.f2_mul_plain((_t(a0), _t(a1)), (_t(b0), _t(b1)))
     g0, g1 = model_f2_mul((a0, a1), (b0, b1), tpi)
     assert np.array_equal(g0, _np(w0)) and np.array_equal(g1, _np(w1))
+
+
+@pytest.mark.parametrize("tpi", _TPIS)
+def test_coop_model_f2_sqr_equals_plain(tpi):
+    a0, a1, _, _ = _model_operands(tpi + 20)
+    w0, w1 = fpk.f2_sqr_plain((_t(a0), _t(a1)))
+    g0, g1 = model_f2_sqr((a0, a1), tpi)
+    assert np.array_equal(g0, _np(w0)) and np.array_equal(g1, _np(w1))
+
+
+def test_coop_model_f2_sqr_bound_holds_on_worst_digits():
+    """K3's loop on the largest digits its factors can hold (all 2^26 - 1
+    canonical, all 2^27 - 2 uncarried) and on p - 1, p - 2, (p - 1)/2."""
+    top = np.zeros((1, _SLOTS), np.uint64)
+    top[:, :_ND] = _DMASK
+    edge = _to_digits(_plain_limbs([P - 1, P - 2, (P - 1) // 2]))
+    x = np.concatenate([top, edge])
+    u, v = _f2_sqr_steps(x, 2 * x, x, 2 * x)
+    assert u.max() > _K3_BOUND // 2 and ((np.maximum(u, v) >> _U26) < 2**32).all()
 
 
 def test_coop_model_digit_conversion_round_trip():
