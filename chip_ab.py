@@ -10,9 +10,11 @@
 source ``csrc/fp_kernels.cu`` taken from SPEC:
 
 * ``tree``: the working tree's source unchanged;
-* ``rev:REV``: the source as it is at git revision REV;
-* ``tpi:N``: the working tree's source with the lanes per element of all
-  three kernels (``constexpr int TPI``, the one constant they share) set
+* ``rev:REV``: the source as it is at git revision REV (one with the same
+  launchers as the working tree's: since the add and subtract kernels,
+  five);
+* ``tpi:N``: the working tree's source with the lanes per element of
+  every kernel (``constexpr int TPI``, the one constant they share) set
   to N.
 
 So only the kernel source differs between the sides: the wrappers, the
@@ -60,10 +62,10 @@ def kernel_source(spec: str, repo: str = REPO) -> str:
     if kind == "tpi" and arg.isdigit():
         if len(_TPI.findall(tree)) != 1:
             raise ValueError("the kernel source has no single `constexpr int TPI` line "
-                             "(the lanes per element of all three kernels)")
+                             "(the lanes per element of every kernel)")
         return _TPI.sub(f"constexpr int TPI = {int(arg)};", tree)
     raise ValueError(f"unknown side spec {spec!r}: tree, rev:REV or tpi:N "
-                     "(N lanes per element in all three kernels)")
+                     "(N lanes per element in every kernel)")
 
 
 def prepare(pairs, ab_dir: str = AB_DIR, repo: str = REPO) -> list:

@@ -10,11 +10,14 @@ Phases, one line each (any failure raises and exits non-zero):
    (``-Xptxas -v``: registers and spills per kernel).  K1-K3 share one
    design: eight lanes of a warp per element on 26-bit digits, CIOS with
    lazy 64-bit accumulators; K3 runs its two products, (a0+a1)(a0+(p-a1))
-   and a0 (2 a1), side by side, one reduction each.
-3. Kernels: K1-K3 on seeded inputs at ``CHECK_SIZES`` elements (the edge
-   values 0, 1, 2, p-1, p-2, (p-1)/2 in every pairing where n >= 36) and
-   on broadcast operands with leading axes, held bit for bit against
-   their plain PyTorch versions on the same CUDA tensors.
+   and a0 (2 a1), side by side, one reduction each.  The canonical add
+   and subtract (``add_mod``, ``sub_mod``) are kernels on the same lanes,
+   digits and carry chains, with no product.
+3. Kernels: K1-K3, add and subtract on seeded inputs at ``CHECK_SIZES``
+   elements (the edge values 0, 1, 2, p-1, p-2, (p-1)/2 in every pairing
+   where n >= 36), on broadcast operands with leading axes and (K1, add,
+   subtract) against one (30,) constant, held bit for bit against their
+   plain PyTorch versions on the same CUDA tensors.
 4. The main path at each width (``--repeats`` timed runs at the first,
    one at the others): sets made from ``--seed`` with the port's
    own signing (distinct keys; 64 messages at 512 sets, 8 signers each)
@@ -61,16 +64,16 @@ Phases, one line each (any failure raises and exits non-zero):
    ``per_set``; every device point armed raises ``DeviceFaultError`` to
    both waiters with no launch (the card has no host tier);
    ``verify_on_main_thread`` is answered on the host with no launch.
-   7d K1-K3 against their plain versions (max |diff| 0) and timed at the
-   largest n of 7a and 7b and at each n they launch ten times or more that
+   7d every kernel against its plain version (max |diff| 0) and timed at
+   the largest n of 7a and 7b and at each n they launch ten times or more that
    phase 5 did not time.
 8. Graphs.
    8a Warm: every program the pool warms (``registry.pool_programs``),
    and the aggregate programs 7b and 8c need besides, captured first, as
    a fresh node would (it runs before phase 4's eager run); one row per
    program: eager warm-up, capture and instantiate seconds, the graph's
-   nodes, the K1-K3 launches it holds, the growth of host RSS and of the
-   card's reserved memory, and the constants the warm-up made.
+   nodes, the launches of each kernel it holds, the growth of host RSS
+   and of the card's reserved memory, and the constants the warm-up made.
    8b Phases bit for bit: each phase of the first width's eager run
    (h2c points, scalar muls, affine, Miller product, final
    exponentiation) captured as its own graph and replayed on the same
@@ -116,8 +119,8 @@ Phases, one line each (any failure raises and exits non-zero):
    128-set share, the four stacked, then the combine: the verdict is
    10a's, and the signature sum's affine limbs and the Fp12 value before
    the final exponentiation equal the unsharded program's bit for bit;
-   10d K1-K3 against their plain versions, and timed, at the largest n of
-   10a and 10c and at each n they launch ten times or more that phase 5
+   10d every kernel against its plain version, and timed, at the largest
+   n of 10a and 10c and at each n they launch ten times or more that phase 5
    did not time (as 7d).
 
 The JSON lines come last: the sharded program, the sidecar, the graphs,
@@ -167,6 +170,9 @@ KERNELS = {
     "mont_mul": (1, 1, 2, 1, "lodestar_tpu/ops/bls12_381/pallas_fp.py:197"),
     "f2_mul": (3, 2, 4, 2, "lodestar_tpu/ops/bls12_381/pallas_fp.py:274"),
     "f2_sqr": (2, 2, 2, 2, "lodestar_tpu/ops/bls12_381/pallas_fp.py:299"),
+    # no Pallas kernel: the reference's add and sub, one XLA fusion each
+    "add_mod": (0, 0, 2, 1, "lodestar_tpu/ops/bls12_381/fp.py:227"),
+    "sub_mod": (0, 0, 2, 1, "lodestar_tpu/ops/bls12_381/fp.py:236"),
 }
 SOURCE = "lodestar_tpu_torch/ops/bls12_381/csrc/fp_kernels.cu"
 
@@ -319,6 +325,9 @@ def kernel_pair(torch, fpk, name: str, xs):
     if name == "f2_mul":
         return (lambda: fpk.f2_mul((xs[0], xs[1]), (xs[2], xs[3])),
                 lambda: fpk.f2_mul_plain((xs[0], xs[1]), (xs[2], xs[3])))
+    if name in ("add_mod", "sub_mod"):
+        return (lambda: getattr(fpk, name)(xs[0], xs[1]),
+                lambda: getattr(fpk, f"{name}_plain")(xs[0], xs[1]))
     return (lambda: fpk.f2_sqr((xs[0], xs[1])),
             lambda: fpk.f2_sqr_plain((xs[0], xs[1])))
 
@@ -352,6 +361,10 @@ def check_kernels(torch, rng, dev):
         if n_in == 4:
             xs[3] = xs[3].reshape(5, 30)
         check_equal(torch, name, *kernel_pair(torch, fpk, name, xs), "broadcast (3, 5)")
+        if name in ("mont_mul", "add_mod", "sub_mod"):
+            # one (30,) constant on either side, as p, r2 or a zero is passed
+            for xs in ([big[0][:6], big[1][8]], [big[1][8], big[0][:6]]):
+                check_equal(torch, name, *kernel_pair(torch, fpk, name, xs), "constant (30,)")
         log(f"[kernels] {name}: equal to plain at n = "
             f"{', '.join(map(str, CHECK_SIZES))} and broadcast (3, 5)")
 
@@ -984,7 +997,7 @@ def governor_fit(medians):
 def warm_all(dev, extra_agg_widths):
     """8a: capture every program the pool warms, then the aggregate
     programs at ``extra_agg_widths`` (7b and 8c); one row per program.
-    Every row is a fresh capture whose graph holds launches of K1-K3."""
+    Every row is a fresh capture whose graph holds launches of every kernel."""
     from lodestar_tpu_torch.aot import registry, warm
     from lodestar_tpu_torch.chain.bls import device_pool as dp
 

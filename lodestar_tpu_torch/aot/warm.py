@@ -45,7 +45,7 @@ def warm_programs(programs: Sequence, device=None) -> List[Dict]:
     row per program.  ``status`` is ``captured`` (here), ``warm`` (before)
     or ``eager`` (the host has nothing to capture).  A captured row gives
     the eager warm-up's seconds (None after the device's first capture),
-    capture and instantiate seconds, the graph's nodes, the K1-K3 launches
+    capture and instantiate seconds, the graph's nodes, each kernel's launches
     it holds, the growth of host RSS (and the process's RSS after it) and
     of ``torch.cuda.memory_reserved``, and the constants the warm-up
     added.  A capture that fails raises."""

@@ -30,6 +30,8 @@ _LAUNCHERS = (
     ("lodestar_fp_mont_mul", 3),
     ("lodestar_fp_f2_mul", 6),
     ("lodestar_fp_f2_sqr", 4),
+    ("lodestar_fp_add_mod", 3),
+    ("lodestar_fp_sub_mod", 3),
 )
 
 _lib: Optional[ctypes.CDLL] = None

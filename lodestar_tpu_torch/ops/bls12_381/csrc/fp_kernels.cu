@@ -1,9 +1,16 @@
-// Montgomery and Fp2 product kernels for BLS12-381 on Hopper (sm_90a).
+// Montgomery and Fp2 product kernels for BLS12-381 on Hopper (sm_90a), and
+// the canonical modular add and subtract.
 //
 // Replaces the three Pallas kernels of lodestar_tpu/ops/bls12_381/pallas_fp.py:
 //   K1 lodestar_fp_mont_mul  <- _mont_mul_kernel / _mont_core (mont_mul)
 //   K2 lodestar_fp_f2_mul    <- _f2_mul_kernel (f2_mul)
 //   K3 lodestar_fp_f2_sqr    <- _f2_sqr_kernel (f2_sqr)
+// and replaces no Pallas kernel with
+//   lodestar_fp_add_mod      <- fp.py::add (one XLA fusion on the TPU)
+//   lodestar_fp_sub_mod      <- fp.py::sub (one XLA fusion on the TPU)
+// which exist because each modular add or subtract in torch ops (their plain
+// versions, fp_kernels.add_mod_plain / sub_mod_plain) is some 30 small
+// kernels, and a verify program makes ~13k of them.
 //
 // Layout at the boundary: every operand is an int32 array of shape (n, 30),
 // row-major: one field element per row as 30 canonical radix-2^13 limbs,
@@ -24,14 +31,14 @@
 // many of the 132 SMs have work.
 //
 // ---------------------------------------------------------------------------
-// One design for the three kernels: eight lanes per element, 26-bit digits
+// One design for the five kernels: eight lanes per element, 26-bit digits
 // ---------------------------------------------------------------------------
 //
 // * Digits: 15 digits of 26 bits (15 x 26 = 390, so R is unchanged) in 16
 //   slots, slot 15 zero.  The boundary conversion is a pair of limbs: digit
 //   j = limb 2j + 2^13 limb 2j+1, and back.
 // * TPI lanes of a warp cooperate on one element (threads per instance, a
-//   compile-time constant shared by K1-K3); lane L holds slots L*D ..
+//   compile-time constant shared by all five); lane L holds slots L*D ..
 //   L*D+D-1, D = 16/TPI.  Lane L reads and writes limbs 4L .. 4L+3 of its
 //   row at TPI = 8, so the lanes of an element touch its 120 contiguous
 //   bytes and a warp four neighbouring rows: the accesses coalesce without
@@ -96,6 +103,14 @@
 //   uncarried.  So each product has one canonical factor, broadcast a digit
 //   a step, and one uncarried, rotated through the slots: the K3 bound
 //   above.  All four factors are below 2p < 2^383, so they fit 15 digits.
+// * Add and subtract (add_mod_kernel, sub_mod_kernel) run on the same
+//   lanes, digits and carry chains, with no product: per element 360 bytes
+//   (two inputs, one output), so the bytes bound them, and at the programs'
+//   sizes (1 to ~18k elements) a launch costs little more than any launch.  Add:
+//   the digitwise sum (digits at most 2^27 - 2) resolved by one carry chain,
+//   then the conditional subtract of p that finish() ends with.  Subtract:
+//   one borrow chain; where a < b the 16 slots hold a - b + 2^416, and adding
+//   p and resolving, with the carry out of slot 15 dropped, leaves a - b + p.
 // * Not on the tensor cores: a_i b differs per element, so it is no matrix
 //   product.  The products by constants (the digits m p) could be, as int8
 //   products; that is later work (PERF.md, open questions).
@@ -240,6 +255,18 @@ __device__ __forceinline__ uint32_t sub_group(uint32_t d[D], const uint32_t x[D]
   return out;
 }
 
+// d = w mod p, canonical, for w < 2p with digits of at most 2^27 - 2: the
+// carries resolved, then one conditional subtract of p (a borrow out of
+// slot 15 means d < p, kept).
+__device__ __forceinline__ void resolve_mod_p(uint32_t d[D], const uint32_t w[D],
+                                              const uint32_t p[D], const Slot& s) {
+  resolve(d, w, s);
+  uint32_t diff[D];
+  const uint32_t keep = sub_group(diff, d, p, s);
+#pragma unroll
+  for (int r = 0; r < D; ++r) d[r] = keep ? d[r] : diff[r];
+}
+
 // One CIOS reduction at step i, once the step's products are in u: slot i
 // holds logical digit 0.  Every lane takes u_0, computes the digit m and
 // adds m p_k; slot i's digit, now u_0 + m p_0 = 0 mod 2^26, leaves as a
@@ -272,13 +299,8 @@ __device__ __forceinline__ void finish(uint32_t d[D], uint64_t u[D], const uint3
 #pragma unroll
   for (int r = 0; r < D; ++r)
     w[r] = static_cast<uint32_t>((v[r] & DMASK) + (r ? v[r - 1] >> DBITS : (s.lane ? c2 : 0u)));
-  // w < 2^26 + 2^7: single-bit carries; none leaves slot 15 (value < 2^390)
-  resolve(d, w, s);
-  // conditional subtract: a borrow out of slot 15 means d < p, keep d
-  uint32_t diff[D];
-  const uint32_t keep = sub_group(diff, d, p, s);
-#pragma unroll
-  for (int r = 0; r < D; ++r) d[r] = keep ? d[r] : diff[r];
+  // w < 2^26 + 2^7: single-bit carries; none leaves slot 15 (value < 2p)
+  resolve_mod_p(d, w, p, s);
 }
 
 __global__ void __launch_bounds__(COOP_THREADS)
@@ -396,6 +418,43 @@ f2_sqr_kernel(const int32_t* __restrict__ a0, const int32_t* __restrict__ a1,
   store_digits(c1, s, r);
 }
 
+// a + b mod p on canonical limbs: the digitwise sum, a + b < 2p, reduced as
+// finish() reduces a product.
+__global__ void __launch_bounds__(COOP_THREADS)
+add_mod_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+               int32_t* __restrict__ out, int64_t n) {
+  const Slot s = slot_of(n);
+  uint32_t x[D], y[D], p[D], r[D];
+  load_digits(x, a, s);
+  load_digits(y, b, s);
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    p[j] = kP26[s.lane * D + j];
+    x[j] += y[j];  // at most 2^27 - 2
+  }
+  resolve_mod_p(r, x, p, s);
+  store_digits(out, s, r);
+}
+
+// a - b mod p on canonical limbs: where a < b the borrow leaves slot 15 and
+// the slots hold a - b + 2^416 (slot 15 at 2^26 - 1); adding p carries
+// exactly 2^416 out of slot 15, which resolve drops, and leaves a - b + p.
+__global__ void __launch_bounds__(COOP_THREADS)
+sub_mod_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+               int32_t* __restrict__ out, int64_t n) {
+  const Slot s = slot_of(n);
+  uint32_t x[D], y[D], diff[D], w[D], r[D];
+  load_digits(x, a, s);
+  load_digits(y, b, s);
+  const uint32_t borrow = sub_group(diff, x, y, s);
+#pragma unroll
+  for (int j = 0; j < D; ++j) w[j] = diff[j] + kP26[s.lane * D + j];  // at most 2^27 - 2
+  resolve(r, w, s);
+#pragma unroll
+  for (int j = 0; j < D; ++j) r[j] = borrow ? r[j] : diff[j];
+  store_digits(out, s, r);
+}
+
 inline unsigned coop_blocks_for(int64_t n) {
   return static_cast<unsigned>((n * TPI + COOP_THREADS - 1) / COOP_THREADS);
 }
@@ -428,5 +487,21 @@ extern "C" int lodestar_fp_f2_sqr(const void* a0, const void* a1, void* c0, void
   f2_sqr_kernel<<<coop_blocks_for(n), COOP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(a0), static_cast<const int32_t*>(a1),
       static_cast<int32_t*>(c0), static_cast<int32_t*>(c1), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int lodestar_fp_add_mod(const void* a, const void* b, void* out, int64_t n,
+                                   void* stream) {
+  add_mod_kernel<<<coop_blocks_for(n), COOP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
+      static_cast<int32_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int lodestar_fp_sub_mod(const void* a, const void* b, void* out, int64_t n,
+                                   void* stream) {
+  sub_mod_kernel<<<coop_blocks_for(n), COOP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
+      static_cast<int32_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }

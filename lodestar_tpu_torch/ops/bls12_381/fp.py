@@ -5,7 +5,8 @@ int32 tensor ``(..., NLIMBS)`` of radix-2^13 limbs in Montgomery form,
 canonical (each limb < 2^13, value < p).  Ops broadcast over leading axes.
 
 Products go through kernel K1 (``fp_kernels.mont_mul``); additions and
-subtractions are torch ops (``fp_kernels.add_mod``/``sub_mod``).  The XLA
+subtractions through the add and subtract kernels (``fp_kernels.add_mod``/
+``sub_mod``), one launch each.  The XLA
 compile-time devices of the reference (CIOS scan, shift matrices, trace
 cache, platform dispatch) have no counterpart here.
 """

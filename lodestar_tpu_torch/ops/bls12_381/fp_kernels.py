@@ -1,8 +1,9 @@
-"""The three field-product kernels: wrappers, launch counters, plain versions.
+"""The field kernels: wrappers, launch counters, plain versions.
 
-Counterpart of ``lodestar_tpu/ops/bls12_381/pallas_fp.py``.  Each wrapper
-keeps that module's signature (broadcasting, any leading axes, tuples for
-Fp2) and dispatches on where its tensors lie:
+Counterpart of ``lodestar_tpu/ops/bls12_381/pallas_fp.py`` for the three
+products, and of ``fp.py::add``/``sub`` for the canonical add and
+subtract.  Each wrapper keeps its reference's signature (broadcasting, any
+leading axes, tuples for Fp2) and dispatches on where its tensors lie:
 
 * a CUDA tensor goes to the hand-written kernel in ``csrc/fp_kernels.cu``
   (built and loaded by ``_build``), or the wrapper raises;
@@ -13,6 +14,8 @@ There is no other route: no fallback from a failed launch, no switch.
     mont_mul(a, b)   -> K1 ``lodestar_fp_mont_mul``  a*b*R^-1 mod p
     f2_mul(a, b)     -> K2 ``lodestar_fp_f2_mul``    Karatsuba in Fp[u]/(u^2+1)
     f2_sqr(a)        -> K3 ``lodestar_fp_f2_sqr``    (a0+a1)(a0-a1), 2 a0 a1
+    add_mod(a, b)    ->    ``lodestar_fp_add_mod``   a + b mod p
+    sub_mod(a, b)    ->    ``lodestar_fp_sub_mod``   a - b mod p
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where
 it launches its kernel and nowhere else.  ``LAUNCH_SIZES`` keeps, per
@@ -22,11 +25,11 @@ wrapper, the same launches as a histogram keyed by the number of elements
 The plain versions follow ``fp.mont_mul_parallel``'s algorithm
 (``lodestar_tpu/ops/bls12_381/fp.py``) in int64 torch ops: the sum
 U + mu*p is past int32 (up to 2^31 + 8223 in the reference's form, up to
-2^32 here, where U is not carried first).  ``add_mod``/``sub_mod`` are the
-canonical modular add and subtract shared with ``fp.py``; they resolve
+2^32 here, where U is not carried first).  ``add_mod_plain``/
+``sub_mod_plain``, the canonical modular add and subtract, resolve
 single-bit carries by packing the per-limb generate and propagate bits
 into one integer, where one integer addition runs the whole carry chain
-(``_propagate``).
+(``_propagate``); ``mont_mul_plain`` ends with the same chains.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ import torch.nn.functional as F
 from . import _build
 from .limbs import LIMB_BITS, MASK, NLIMBS, NPRIME_LIMBS, ONE_MONT, P_LIMBS, R2_LIMBS
 
-LAUNCHES: Dict[str, int] = {"mont_mul": 0, "f2_mul": 0, "f2_sqr": 0}
+LAUNCHES: Dict[str, int] = {"mont_mul": 0, "f2_mul": 0, "f2_sqr": 0, "add_mod": 0, "sub_mod": 0}
 LAUNCH_SIZES: Dict[str, Dict[int, int]] = {name: {} for name in LAUNCHES}
 
 _TABLES = {
@@ -72,7 +75,7 @@ def _bit_tables(n: int, dtype: torch.dtype, device: torch.device):
 
 
 # ---------------------------------------------------------------------------
-# carry machinery and canonical add/sub (shared with fp.py)
+# carry machinery and the plain canonical add/sub
 # ---------------------------------------------------------------------------
 
 
@@ -115,13 +118,15 @@ def _cond_sub_p(t):
     return torch.where(borrow_out.unsqueeze(-1) != 0, t, d)
 
 
-def add_mod(a, b):
-    """a + b mod p on canonical limbs (broadcasting)."""
+def add_mod_plain(a, b):
+    """Plain version of ``add_mod``: a + b mod p on canonical limbs
+    (broadcasting)."""
     return _cond_sub_p(_resolve(a + b))
 
 
-def sub_mod(a, b):
-    """a - b mod p on canonical limbs (broadcasting)."""
+def sub_mod_plain(a, b):
+    """Plain version of ``sub_mod``: a - b mod p on canonical limbs
+    (broadcasting)."""
     borrow_in, borrow_out = _propagate(_borrow_code(a, b))
     d = (a + (1 << LIMB_BITS) - b - borrow_in) & MASK
     # where a < b the limbs hold a - b + 2^390: adding p and dropping the
@@ -189,19 +194,19 @@ def mont_mul_plain(a, b):
 def f2_mul_plain(a, b):
     """Plain version of K2 (same formula: three products, fused adds)."""
     a0, a1, b0, b1 = torch.broadcast_tensors(a[0], a[1], b[0], b[1])
-    s = add_mod(torch.stack([a0, b0]), torch.stack([a1, b1]))
+    s = add_mod_plain(torch.stack([a0, b0]), torch.stack([a1, b1]))
     t = mont_mul_plain(torch.stack([a0, a1, s[0]]), torch.stack([b0, b1, s[1]]))
-    d = sub_mod(torch.stack([t[0], t[2]]), torch.stack([t[1], t[0]]))
-    return d[0], sub_mod(d[1], t[1])
+    d = sub_mod_plain(torch.stack([t[0], t[2]]), torch.stack([t[1], t[0]]))
+    return d[0], sub_mod_plain(d[1], t[1])
 
 
 def f2_sqr_plain(a):
     """Plain version of K3: (a0+a1)(a0-a1), 2 a0 a1."""
     a0, a1 = torch.broadcast_tensors(a[0], a[1])
     t = mont_mul_plain(
-        torch.stack([add_mod(a0, a1), a0]), torch.stack([sub_mod(a0, a1), a1])
+        torch.stack([add_mod_plain(a0, a1), a0]), torch.stack([sub_mod_plain(a0, a1), a1])
     )
-    return t[0], add_mod(t[1], t[1])
+    return t[0], add_mod_plain(t[1], t[1])
 
 
 # ---------------------------------------------------------------------------
@@ -266,3 +271,21 @@ def f2_sqr(a):
         return f2_sqr_plain((a0, a1))
     c0, c1 = _launch("f2_sqr", "lodestar_fp_f2_sqr", 2, a0, a1)
     return c0, c1
+
+
+def add_mod(a, b):
+    """a + b mod p on canonical limbs (broadcasting): one launch."""
+    a, b = _operands(a, b)
+    if a.device.type == "cpu":
+        return add_mod_plain(a, b)
+    (out,) = _launch("add_mod", "lodestar_fp_add_mod", 1, a, b)
+    return out
+
+
+def sub_mod(a, b):
+    """a - b mod p on canonical limbs (broadcasting): one launch."""
+    a, b = _operands(a, b)
+    if a.device.type == "cpu":
+        return sub_mod_plain(a, b)
+    (out,) = _launch("sub_mod", "lodestar_fp_sub_mod", 1, a, b)
+    return out

@@ -11,8 +11,8 @@ independent products of a tower level are stacked into ONE kernel call:
 an ``f12_mul`` is one launch of 18 Fp2 products per batch element.
 
 Additions and subtractions work on whole trees at once: the leaves are
-stacked and go through one ``fp.add``/``fp.sub`` — each costs a few dozen
-small torch ops, so an Fp12 addition is one of them, not twelve.  Results
+stacked and go through one ``fp.add``/``fp.sub``, one kernel launch, so an
+Fp12 addition is one launch, not twelve.  Results
 are canonical residues, so they equal the reference's limb for limb
 whatever the grouping.
 """

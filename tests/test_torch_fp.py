@@ -181,11 +181,13 @@ def _source_ints(src, pattern):
 def test_kernel_source_constants():
     """The CUDA source embeds p and -p^-1 as literals in 26-bit digits;
     they must be the limb tables', the accumulator bounds it states must
-    hold, and its three kernels must share the one cooperative design."""
+    hold, and its five kernels (K1-K3, add and subtract) must share the
+    one cooperative design."""
     src = _kernel_source()
     # one design: every kernel launches TPI lanes per element, and no
     # 13-bit per-thread code is left
-    assert src.count("<<<coop_blocks_for(n), COOP_THREADS, 0,") == 3
+    assert src.count("<<<coop_blocks_for(n), COOP_THREADS, 0,") == 5
+    assert src.count("__global__") == 5
     assert "kP[NL]" not in src and "N0INV" not in src and "THREADS = 64" not in src
     # 15 digits of 26 bits (R = 2^390 unchanged) in 16 slots
     assert int(re.search(r"TPI = (\d+);", src).group(1)) in _TPIS
@@ -282,17 +284,18 @@ def _sub_group(x, y):
     return _sub_digits(x, y, borrow)[0], out
 
 
-def _resolve_group(w, tpi):
+def _resolve_group(w, tpi, carry_out=0):
     """(n, 16) digits of at most 2^27 - 2 -> canonical digits, the carries
-    run across lanes by the ballot chain (the source's ``resolve``); the
-    value is below 2^390, so no carry leaves slot 15."""
+    run across lanes by the ballot chain (the source's ``resolve``), and
+    the carry out of slot 15 dropped: it must be ``carry_out`` (0 where the
+    value is below 2^390)."""
     assert (w <= 2 * _DMASK).all()
     w = w.reshape(-1, tpi, _SLOTS // tpi)
     zero = np.zeros(w.shape[:2], np.uint64)
     _, o0 = _add_digits(w, zero)
     _, o1 = _add_digits(w, zero + np.uint64(1))
     carry, out = _lane_carry(o0, o1)
-    assert not out.any()
+    assert np.array_equal(out, np.broadcast_to(np.uint64(carry_out), out.shape))
     return _add_digits(w, carry)[0].reshape(-1, _SLOTS)
 
 
@@ -316,10 +319,20 @@ def _finish(u, tpi, width):
     v = (u & _M26) + np.concatenate([zero, u[:, :-1] >> _U26], 1)
     w = (v & _M26) + np.concatenate([zero, v[:, :-1] >> _U26], 1)
     assert (w <= _DMASK + 2 ** 7).all()
+    return _resolve_mod_p(w, tpi)
+
+
+def _resolve_mod_p(w, tpi):
+    """(n, 16) digits of a value below 2p -> canonical digits mod p: the
+    carries resolved, then one conditional subtract of p (the source's
+    ``resolve_mod_p``)."""
     d = _resolve_group(w, tpi).reshape(-1, tpi, _SLOTS // tpi)
-    p = np.broadcast_to(_P26.reshape(1, tpi, -1), d.shape)
-    diff, keep = _sub_group(d, p)
+    diff, keep = _sub_group(d, _p_lanes(len(d), tpi))
     return np.where(keep[:, None, None] != 0, d, diff).reshape(-1, _SLOTS)
+
+
+def _p_lanes(n, tpi):
+    return np.broadcast_to(_P26.reshape(1, tpi, -1), (n, tpi, _SLOTS // tpi))
 
 
 def model_mont_mul(a, b, tpi):
@@ -334,7 +347,7 @@ def model_mont_mul(a, b, tpi):
 
 def model_f2_mul(a, b, tpi):
     x0, x1, y0, y1 = (_to_digits(t) for t in (a[0], a[1], b[0], b[1]))
-    p = np.broadcast_to(_P26.reshape(1, tpi, -1), (x0.shape[0], tpi, _SLOTS // tpi))
+    p = _p_lanes(x0.shape[0], tpi)
     ny1, out = _sub_group(p, y1.reshape(p.shape))
     assert not out.any()
     ny1, pk = ny1.reshape(-1, _SLOTS), _P26[None]
@@ -365,7 +378,7 @@ def _f2_sqr_steps(x, y, x0, y1):
 def model_f2_sqr(a, tpi):
     x0, x1 = _to_digits(a[0]), _to_digits(a[1])
     s = _resolve_group(x0 + x1, tpi)  # a0 + a1 < 2p, canonical
-    p = np.broadcast_to(_P26.reshape(1, tpi, -1), (x0.shape[0], tpi, _SLOTS // tpi))
+    p = _p_lanes(x0.shape[0], tpi)
     ny1, out = _sub_group(p, x1.reshape(p.shape))
     assert not out.any()
     y0 = ny1.reshape(-1, _SLOTS) + x0  # a0 + (p - a1) < 2p, uncarried
@@ -373,6 +386,24 @@ def model_f2_sqr(a, tpi):
     assert (y0 <= 2 * _DMASK).all() and (y1 <= 2 * _DMASK).all()
     u, v = _f2_sqr_steps(s, y0, x0, y1)
     return _to_limbs(_finish(u, tpi, 58)), _to_limbs(_finish(v, tpi, 58))
+
+
+def model_add_mod(a, b, tpi):
+    """The source's add_mod_kernel: the digitwise sum, a + b < 2p, reduced
+    as ``_finish`` reduces a product."""
+    return _to_limbs(_resolve_mod_p(_to_digits(a) + _to_digits(b), tpi))
+
+
+def model_sub_mod(a, b, tpi):
+    """The source's sub_mod_kernel: one borrow chain; where it leaves slot
+    15 (a < b), p added and resolved, the carry out of slot 15 dropped."""
+    x = _to_digits(a).reshape(-1, tpi, _SLOTS // tpi)
+    y = _to_digits(b).reshape(x.shape)
+    d, borrow = _sub_group(x, y)
+    # a < b: slot 15 holds 2^26 - 1, and the sum with p carries 2^416 out
+    assert np.array_equal(d[:, -1, -1] == _DMASK, borrow != 0)
+    r = _resolve_group((d + _p_lanes(len(d), tpi)).reshape(-1, _SLOTS), tpi, borrow)
+    return _to_limbs(np.where(borrow[:, None] != 0, r, d.reshape(-1, _SLOTS)))
 
 
 def _model_operands(seed, n=40):
@@ -405,6 +436,16 @@ def test_coop_model_f2_sqr_equals_plain(tpi):
     w0, w1 = fpk.f2_sqr_plain((_t(a0), _t(a1)))
     g0, g1 = model_f2_sqr((a0, a1), tpi)
     assert np.array_equal(g0, _np(w0)) and np.array_equal(g1, _np(w1))
+
+
+@pytest.mark.parametrize("op", ["add_mod", "sub_mod"])
+@pytest.mark.parametrize("tpi", _TPIS)
+def test_coop_model_add_sub_equals_plain(op, tpi):
+    a, b, _, _ = _model_operands(tpi + 30)
+    a, b = np.concatenate([a, _plain_limbs(_SUM_IS_P[0])]), np.concatenate([b, _plain_limbs(_SUM_IS_P[1])])
+    want = _np(getattr(fpk, f"{op}_plain")(_t(a), _t(b)))
+    model = model_add_mod if op == "add_mod" else model_sub_mod
+    assert np.array_equal(model(a, b, tpi), want)
 
 
 def test_coop_model_f2_sqr_bound_holds_on_worst_digits():
@@ -446,6 +487,65 @@ def test_binary_op_equals_jax(op, seed):
     want = np.asarray(getattr(jfp, op)(a, b))
     got = _np(getattr(fp, op)(_t(a), _t(b)))
     assert np.array_equal(got, want)
+
+
+# pairs whose sum is exactly p (and p + 1, p - 1), as (a values, b values)
+_SUM_IS_P = ([1, P // 2, (P + 1) // 2, P - 1, 2, P - 2], [P - 1, (P + 1) // 2, P // 2, 1, P - 1, 1])
+
+
+def _add_sub_edges():
+    """Plain limbs: every pairing of the edges (a < b, a == b, a > b, 0, 1,
+    p - 1), and pairs whose sum is p, p + 1 or p - 1."""
+    a = [x for x in EDGES for _ in EDGES] + _SUM_IS_P[0]
+    b = [y for _ in EDGES for y in EDGES] + _SUM_IS_P[1]
+    return a, b
+
+
+@pytest.mark.parametrize("op", ["add", "sub"])
+def test_add_sub_plain_edges_equal_jax_and_ints(op):
+    a, b = _add_sub_edges()
+    la, lb = _plain_limbs(a), _plain_limbs(b)
+    got = _np(getattr(fpk, f"{op}_mod_plain")(_t(la), _t(lb)))
+    assert np.array_equal(got, np.asarray(getattr(jfp, op)(la, lb)))
+    ref = (lambda x, y: (x + y) % P) if op == "add" else (lambda x, y: (x - y) % P)
+    assert [jlimbs.limbs_to_int(r) for r in got] == [ref(x, y) for x, y in zip(a, b)]
+    # the wrapper takes CPU tensors to the plain version
+    assert np.array_equal(_np(getattr(fpk, f"{op}_mod")(_t(la), _t(lb))), got)
+
+
+@pytest.mark.parametrize("op", ["add", "sub"])
+@pytest.mark.parametrize("const_first", [False, True])
+def test_add_sub_broadcast_against_a_constant(op, const_first):
+    """A (30,) constant (p - 1, then 0) against a (2, 7, 30) operand, either
+    side, through the wrapper and the plain version."""
+    x = _plain_limbs(_rand_ints(41, 12) + EDGES[:2]).reshape(2, 7, limbs.NLIMBS)
+    for c in (P - 1, 0):
+        k = jlimbs.int_to_limbs(c)
+        args = (k, x) if const_first else (x, k)
+        want = np.asarray(getattr(jfp, op)(*args))
+        for fn in (getattr(fpk, f"{op}_mod"), getattr(fpk, f"{op}_mod_plain")):
+            got = fn(*(_t(t) for t in args))
+            assert got.shape == (2, 7, limbs.NLIMBS) and got.dtype == torch.int32
+            assert np.array_equal(_np(got), want)
+
+
+@pytest.mark.parametrize("op", ["add_mod", "sub_mod", "mont_mul"])
+def test_binary_wrapper_launches_its_kernel_off_the_cpu(op, monkeypatch):
+    """Off the CPU the wrapper hands broadcast operands of one shape to its
+    own launcher and returns what the launch made (``meta`` tensors stand
+    in for CUDA ones: no kernel runs)."""
+    calls = []
+
+    def launch(name, fn, n_out, *xs):
+        calls.append((name, fn, n_out, [tuple(x.shape) for x in xs]))
+        return [torch.empty(xs[0].shape, dtype=torch.int32, device=xs[0].device)]
+
+    monkeypatch.setattr(fpk, "_launch", launch)
+    a = torch.empty((4, 3, limbs.NLIMBS), dtype=torch.int32, device="meta")
+    b = torch.empty((limbs.NLIMBS,), dtype=torch.int32, device="meta")
+    out = getattr(fpk, op)(a, b)
+    assert out.shape == (4, 3, limbs.NLIMBS)
+    assert calls == [(op, f"lodestar_fp_{op}", 1, [(4, 3, limbs.NLIMBS)] * 2)]
 
 
 @pytest.mark.parametrize("op", ["neg", "to_mont", "from_mont", "mont_sqr", "dbl"])

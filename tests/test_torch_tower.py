@@ -210,3 +210,30 @@ def test_f12_mul_is_one_stacked_kernel_call(monkeypatch):
     tw.f12_mul(_enc(xs, jtower.encode_fp12), _enc(ys, jtower.encode_fp12))
     assert len(calls) == 1
     assert int(np.prod(calls[0][:-1])) == 18 * B
+
+
+def test_f12_add_sub_are_one_wrapper_call_each(monkeypatch):
+    """A ``t_add`` and a ``t_sub`` of two Fp12 operands each call the
+    ``fp_kernels.add_mod``/``sub_mod`` wrapper once (one launch on the
+    card), and G1's field table is bound to those wrappers."""
+    from lodestar_tpu_torch.ops.bls12_381 import curve, fp
+
+    assert fp.add is fpk.add_mod and fp.sub is fpk.sub_mod
+    assert curve.F1.add is fpk.add_mod and curve.F1.sub is fpk.sub_mod
+    assert curve.F2.add is tw.t_add and curve.F2.sub is tw.t_sub
+    calls = []
+    for name in ("add_mod_plain", "sub_mod_plain"):
+        real = getattr(fpk, name)
+
+        def spy(a, b, name=name, real=real):
+            calls.append((name, tuple(a.shape)))
+            return real(a, b)
+
+        monkeypatch.setattr(fpk, name, spy)
+    xs, ys = _f12s(41), _f12s(42)
+    a, b = _enc(xs, jtower.encode_fp12), _enc(ys, jtower.encode_fp12)
+    total = tw.t_add(a, b)
+    assert calls == [("add_mod_plain", (12, B, 30))]
+    diff = tw.t_sub(total, b)
+    assert calls[1:] == [("sub_mod_plain", (12, B, 30))]
+    assert _dec(diff, tw.decode_fp12, B) == xs
